@@ -2,25 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` (nvcc, sm_90a), then, in phases that each raise on failure:
+Builds the four hand-written CUDA kernels from ``src/repro_torch/kernels/
+csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
+raise on failure:
 
 1. the card: name and power limit (nvidia-smi), SMs, max SM clock, versions;
 2. the build, timed;
 3. every kernel against its plain PyTorch version on the card, at the
-   shapes of ``tests/test_kernels.py`` and at the main path's full-size
-   shapes: K1, K2 and K3 bitwise for the empty, compute and memory kinds,
-   K3 compute_mxu within check_outputs' rtol 1e-5 / atol 1e-6;
-4. the structural pin: ``torch.profiler`` records exactly one CUDA kernel
-   per ``cuda-fused`` run, for 1 graph and for 3 stacked graphs;
-5. the main path at full size (launch counts zeroed just before, read just
-   after): stencil / compute, width 132 (one task column per SM), height
-   1000, on ``cuda-fused`` and ``torch-scan``, one graph and ``run_many`` of
-   4 concurrent nearest[radix=5] graphs, plus the memory kind with 1 MiB of
-   scratch per column; every output checked against the numpy oracle and
-   the two backends bitwise equal;
+   shapes of ``tests/test_kernels.py`` and at the main paths' full-size
+   shapes: K1, K2, K3 and K4 bitwise for the empty, compute and memory
+   kinds, K3 and K4 compute_mxu within check_outputs' rtol 1e-5 / atol
+   1e-6; K4 on every pattern at 2, 4 and 8 ranks (ragged widths included)
+   and at full size on stencil (4 and 132 ranks), nearest[radix=5] (132),
+   memory with 1 MiB of scratch per column (132) and spread[radix=5] (8
+   ranks, puts to every rank);
+4. the structural pin, over ``PIN_RUNS`` runs: the launch counter reads
+   exactly one K3 launch a ``cuda-fused`` run, for 1 graph and for 3
+   stacked graphs, and one K4 launch a graph of a
+   ``cuda-fused[comm=onesided]`` run; ``torch.profiler`` records at least
+   one CUDA kernel, none but the expected kernel and no more than those
+   launches (it can miss whole launches, see ``timed``);
+5. the main paths at full size, each with the launch counts zeroed just
+   before it and read just after: stencil / compute, width 132 (one task
+   column per SM), height 1000, on ``torch-scan`` and ``cuda-fused``, one
+   graph and ``run_many`` of 4 concurrent nearest[radix=5] graphs, plus the
+   memory kind with 1 MiB of scratch per column; and the stencil and memory
+   graphs on ``cuda-fused[comm=onesided,ranks=132]`` (one rank per column);
+   every output checked against the numpy oracle and all backends bitwise
+   equal;
 6. METG on the card: ``run_scenario`` with the wall clock over iterations
-   4096 -> 1 for both backends.
+   4096 -> 1 for the three backends.
 
 The line before the last lists the kernels with their launches on the main
 path, errors, times and bounds; the last line is the device record.  Exits
@@ -35,6 +46,7 @@ import time
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,12 +57,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.backends.megakernel import (  # noqa: E402
-    MegakernelBackend, tables_from_numpy, taskbench_fused,
-    taskbench_fused_plain)
+    MegakernelBackend, onesided_tables_from_numpy, tables_from_numpy,
+    taskbench_fused, taskbench_fused_plain, taskbench_onesided,
+    taskbench_onesided_plain)
 from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
                                compute_metg, run_scenario)
-from repro_torch.core import (check_outputs, execute_reference,  # noqa: E402
-                              make_graph, pattern_names, replicate)
+from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
+                              execute_reference, make_graph, pattern_names,
+                              replicate)
+from repro_torch.dist import plan_comm  # noqa: E402
 from repro_torch.kernels import (_build, bodies,  # noqa: E402
                                  taskbench_compute, taskbench_compute_plain,
                                  taskbench_memory, taskbench_memory_plain)
@@ -61,6 +76,8 @@ WIDTH, HEIGHT = 132, 1000
 MAIN_ITERS, MEM_ITERS = 16, 4
 MEM_SCRATCH = 1 << 20
 MXU_RTOL, MXU_ATOL = 1e-5, 1e-6
+ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
+PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
 
 
 def phase(title: str):
@@ -85,27 +102,61 @@ def device_kernels(prof) -> list:
             and not e.name.startswith(("Memcpy", "Memset"))]
 
 
-def timed(fn, reps: int):
-    """(device ms, stream ms) per call of ``fn``, after one warm call.
+class Timing(NamedTuple):
+    """Per-call times in ms of one ``timed`` measurement."""
+    device: float  # the profiler's kernel time (see ``timed``)
+    stream: float  # CUDA events around the calls, not profiled
+    memset: float  # memsets the profiler records
+    span: float  # first kernel or memset's start to the last one's end
+    recorded: int  # kernel launches the profiler recorded
+    reps: int
 
-    Device ms sums the durations of the CUDA kernels the profiler records:
-    the card's own time.  Stream ms is the CUDA-event time between the
-    first and the last call over ``reps`` back-to-back calls, which also
-    counts the gaps where the host has not issued the next launch yet."""
+    def describe(self) -> str:
+        return (f"device {self.device:.6f} ms (stream {self.stream:.6f} ms; "
+                f"profiler: {self.recorded} kernels recorded over {self.reps} "
+                f"calls, span {self.span:.6f} ms, memsets {self.memset:.6f} "
+                f"ms a call)")
+
+
+def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
+    """Times a call of ``fn`` over ``reps`` back-to-back calls, after one
+    warm call: once under ``torch.profiler``, then with CUDA events alone
+    (stream ms, which also counts the gaps where the host has not issued
+    the next launch yet).
+
+    Device ms is the profiler's kernel time a call.  The profiler on the
+    H100 does not record every launch: some runs miss whole launches of a
+    long kernel (K3, K4), the ones it records being consecutive and of
+    the right length.  So for a kernel wrapper (``one_kernel``: one kernel
+    a call) device ms is the mean duration of the launches recorded;
+    otherwise it is the recorded kernel time over ``reps``.  Span and
+    memset ms are per call, span from the first kernel or memset's start
+    to the last one's end."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device = sum(e.time_range.elapsed_us() for e in device_kernels(prof))
+    kernels = device_kernels(prof)
+    memsets = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name.startswith("Memset")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no CUDA kernel")
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    device = total / len(kernels) if one_kernel else total / reps
+    memset = sum(e.time_range.elapsed_us() for e in memsets)
+    span = (max(e.time_range.end for e in kernels + memsets)
+            - min(e.time_range.start for e in kernels + memsets))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return device / 1e3 / reps, start.elapsed_time(end) / reps
+    return Timing(device / 1e3, start.elapsed_time(end) / reps,
+                  memset / 1e3 / reps, span / 1e3 / reps, len(kernels), reps)
 
 
 def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -116,7 +167,10 @@ def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-# the main path's three full-size graphs
+# the main paths' three full-size graphs (checked against the numpy
+# oracle), and a graph whose puts reach every rank (K4 against its plain
+# version only)
+ORACLE_GRAPHS = ("stencil", "nearest", "memory")
 GRAPHS = {
     "stencil": dict(pattern="stencil", kernel="compute",
                     iterations=MAIN_ITERS),
@@ -124,6 +178,8 @@ GRAPHS = {
                     iterations=MAIN_ITERS, radix=5),
     "memory": dict(pattern="stencil", kernel="memory", iterations=MEM_ITERS,
                    scratch_bytes=MEM_SCRATCH),
+    "spread": dict(pattern="spread", kernel="compute", iterations=MAIN_ITERS,
+                   radix=5),
 }
 
 
@@ -143,9 +199,9 @@ def main() -> int:
     t_all = time.perf_counter()
     # the numpy oracle of the three graphs takes ~30 s of CPU: it runs in
     # worker processes while the card works
-    with ProcessPoolExecutor(len(GRAPHS),
+    with ProcessPoolExecutor(len(ORACLE_GRAPHS),
                              mp_context=get_context("spawn")) as pool:
-        oracles = {name: pool.submit(oracle, name) for name in GRAPHS}
+        oracles = {name: pool.submit(oracle, name) for name in ORACLE_GRAPHS}
         kernels = run_phases(full_size("stencil"), full_size("nearest"),
                              full_size("memory"), oracles)
     print(f"\ntotal time {time.perf_counter() - t_all:.3f} s")
@@ -183,7 +239,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         if "registers" in line or "spill" in line or "entry function" in line:
             print("   " + line.strip())
     print(f"   K3 grid for {WIDTH} tasks: "
-          f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks")
+          f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks; K4 holds at most "
+          f"{lib.taskbench_onesided_blocks(0)} co-resident ranks")
     done(t0)
 
     def bound(flops: float, nbytes: float):
@@ -194,7 +251,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     # -- 3. kernels against their plain versions -----------------------
     t0 = phase("3. kernels vs plain versions on the card")
     rng = np.random.RandomState(0)
-    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     for w, mi in [(8, 12), (16, 40), (32, 7), (WIDTH, MAIN_ITERS),
                   (4 * WIDTH, MAIN_ITERS)]:
         tiles = torch.from_numpy(
@@ -231,6 +288,22 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         return tabs, kw, taskbench_fused(*tabs, **kw), \
             taskbench_fused_plain(*tabs, **kw)
 
+    def onesided_pair(graph, ranks):
+        plan = plan_comm(graph, ranks, "cols", comm="onesided")
+        tabs = onesided_tables_from_numpy(
+            *MegakernelBackend._onesided_tables(graph, plan), dev)
+        kw = dict(kernel=graph.kernel, height=graph.height,
+                  payload_elems=graph.payload_elems)
+        return plan, tabs, kw, taskbench_onesided(*tabs, **kw), \
+            taskbench_onesided_plain(*tabs, **kw)
+
+    def agree(name, kind, got, want) -> float:
+        if kind == "compute_mxu":
+            torch.testing.assert_close(got, want, rtol=MXU_RTOL,
+                                       atol=MXU_ATOL)
+            return (got - want).abs().max().item()
+        return bitwise(name, got, want)
+
     pkw = {"nearest": {"radix": 3}, "spread": {"radix": 3}}
     for kind in ("empty", "compute", "memory", "compute_mxu"):
         worst = 0.0
@@ -242,12 +315,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                             **pkw.get(pat, {}), **extra)
             for graphs in ([gr], replicate(gr, 3)):
                 _, _, got, want = fused_pair(graphs)
-                if kind == "compute_mxu":
-                    torch.testing.assert_close(got, want, rtol=MXU_RTOL,
-                                               atol=MXU_ATOL)
-                    worst = max(worst, (got - want).abs().max().item())
-                else:
-                    worst = max(worst, bitwise(f"K3 {kind} {pat}", got, want))
+                worst = max(worst, agree(f"K3 {kind} {pat}", kind, got, want))
+        errs["K3"] = max(errs["K3"], worst)
         print(f"   K3 {kind}, every pattern, 1 and 3 graphs (W=6, H=8): "
               f"max abs diff {worst}")
     for name, graphs in (("stencil", [stencil]),
@@ -258,67 +327,113 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         errs["K3"] = max(errs["K3"], e)
         print(f"   K3 full size {name} (W={WIDTH}, H={HEIGHT}): "
               f"max abs diff {e}")
+    for kind in ("empty", "compute", "memory", "compute_mxu"):
+        worst = 0.0
+        for pat in pattern_names():
+            extra = ({"scratch_bytes": 2048, "span_bytes": 512}
+                     if kind == "memory" else {})
+            for width in (6, 10):
+                gr = make_graph(width=width, height=8, pattern=pat,
+                                kernel=kind, iterations=9, imbalance=0.5,
+                                **pkw.get(pat, {}), **extra)
+                for ranks in (2, 4, 8):
+                    _, _, _, got, want = onesided_pair(gr, ranks)
+                    worst = max(worst, agree(f"K4 {kind} {pat} W={width} "
+                                             f"ranks={ranks}", kind, got,
+                                             want))
+        errs["K4"] = max(errs["K4"], worst)
+        print(f"   K4 {kind}, every pattern, W=6 and 10, H=8, 2/4/8 ranks: "
+              f"max abs diff {worst}")
+    for name, ranks in (("stencil", 4), ("stencil", WIDTH),
+                        ("nearest", WIDTH), ("memory", WIDTH), ("spread", 8)):
+        plan, _, _, got, want = onesided_pair(full_size(name), ranks)
+        e = bitwise(f"K4 full size {name} ranks={ranks}", got, want)
+        errs["K4"] = max(errs["K4"], e)
+        n_off = len(plan._onesided_offsets) if plan.a2a_cap else 0
+        inbox = ranks * HEIGHT * n_off * plan.a2a_cap * 5 * 4
+        print(f"   K4 full size {name} ranks={ranks} (W={WIDTH}, H={HEIGHT}"
+              f", {n_off} ring offsets, cap {plan.a2a_cap}, inbox "
+              f"{inbox / 1e6:.3f} MB): max abs diff {e}")
     print(f"   launches so far: K1 {taskbench_compute.launches}, "
-          f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}")
+          f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}, "
+          f"K4 {taskbench_onesided.launches}")
     done(t0)
 
     # -- 4. the structural pin -----------------------------------------
-    t0 = phase("4. one CUDA kernel per cuda-fused run (torch.profiler)")
+    t0 = phase("4. one CUDA kernel per cuda-fused run, one per graph of a "
+               "one-sided run (torch.profiler)")
     fused = get_backend("cuda-fused")
-    for graphs in ([stencil], replicate(stencil, 3)):
-        runner = fused.prepare_many(graphs)
-        runner()
-        before = taskbench_fused.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    onesided = get_backend(ONESIDED)
+    for label, be, counter, per_graph, key in (
+            ("cuda-fused", fused, taskbench_fused, False, "fused_kernel"),
+            (ONESIDED, onesided, taskbench_onesided, True,
+             "onesided_kernel")):
+        for graphs in ([stencil], replicate(stencil, 3)):
+            runner = be.prepare_many(graphs)
             runner()
-        names = [e.name for e in device_kernels(prof)]
-        counted = taskbench_fused.launches - before
-        print(f"   {len(graphs)} graph(s): profiler CUDA kernels {len(names)} "
-              f"{sorted(set(names))}, launch counter +{counted}")
-        if not names:
-            print("   the profiler saw no CUDA kernel: pinned by the launch "
-                  "counter instead")
-        elif len(names) != 1:
-            raise AssertionError(f"expected one CUDA kernel, saw {names}")
-        if counted != 1:
-            raise AssertionError(f"expected one K3 launch, counted {counted}")
+            before = counter.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(PIN_RUNS):
+                    runner()
+            names = [e.name for e in device_kernels(prof)]
+            counted = counter.launches - before
+            want = (len(graphs) if per_graph else 1) * PIN_RUNS
+            print(f"   {label}, {len(graphs)} graph(s), {PIN_RUNS} runs: "
+                  f"profiler CUDA kernels {len(names)} "
+                  f"{sorted(set(names))}, launch counter +{counted}")
+            if not names:
+                raise AssertionError("the profiler recorded no CUDA kernel")
+            if len(names) > want or any(key not in n for n in names):
+                raise AssertionError(f"expected at most {want} {key} "
+                                     f"kernels, the profiler recorded "
+                                     f"{names}")
+            if counted != want:
+                raise AssertionError(f"expected {want} launch(es), counted "
+                                     f"{counted}")
     done(t0)
 
-    # -- 5. the main path at full size ---------------------------------
-    t0 = phase("5. main path: W=132, H=1000, both backends")
+    # -- 5. the main paths at full size --------------------------------
+    t0 = phase(f"5. main paths: W={WIDTH}, H={HEIGHT}, torch-scan, "
+               f"cuda-fused, {ONESIDED}")
     scan = get_backend("torch-scan")
-    for fn in (taskbench_compute, taskbench_memory, taskbench_fused):
-        fn.launches = 0
-    outs = {}
-    for label, graphs in (("stencil", [stencil]),
-                          ("4 x nearest[radix=5]", replicate(nearest, 4)),
-                          ("memory 1 MiB", [memory])):
-        for be_name, be in (("cuda-fused", fused), ("torch-scan", scan)):
+    counters = {"K1": taskbench_compute, "K2": taskbench_memory,
+                "K3": taskbench_fused, "K4": taskbench_onesided}
+    cases = (("stencil", "stencil", [stencil]),
+             ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
+             ("memory 1 MiB", "memory", [memory]))
+    paths = (("torch-scan", scan, ("K1", "K2"), cases),
+             ("cuda-fused", fused, ("K3",), cases),
+             (ONESIDED, onesided, ("K4",), (cases[0], cases[2])))
+    outs, launches = {}, {}
+    for be_name, be, path_kernels, path_cases in paths:
+        for fn in counters.values():
+            fn.launches = 0
+        for label, _, graphs in path_cases:
             t1 = time.perf_counter()
             outs[label, be_name] = be.run_many(graphs)
             print(f"   {label} on {be_name}: "
                   f"{(time.perf_counter() - t1) * 1e3:.3f} ms (first run)")
-    launches = {"K1": taskbench_compute.launches,
-                "K2": taskbench_memory.launches,
-                "K3": taskbench_fused.launches}
-    print(f"   launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{k} was never launched on the main path")
-    for label, key, graphs in (
-            ("stencil", "stencil", [stencil]),
-            ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
-            ("memory 1 MiB", "memory", [memory])):
+        counts = {k: fn.launches for k, fn in counters.items()}
+        print(f"   launches on the {be_name} path: {counts}")
+        for k in path_kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"{k} was never launched on the "
+                                     f"{be_name} path")
+            launches[k] = counts[k]
+    for label, key, graphs in cases:
         ref = oracles[key].result()
+        names = [p[0] for p in paths if (label, p[0]) in outs]
         for k in range(len(graphs)):
-            a, b = outs[label, "cuda-fused"][k], outs[label, "torch-scan"][k]
-            check_outputs(graphs[k], a, expected=ref)
-            check_outputs(graphs[k], b, expected=ref)
-            if not np.array_equal(a, b):
-                raise AssertionError(f"{label}: backends differ")
-        print(f"   {label}: both backends pass check_outputs against the "
-              f"oracle and agree bitwise")
+            first = outs[label, names[0]][k]
+            for be_name in names:
+                out = outs[label, be_name][k]
+                check_outputs(graphs[k], out, expected=ref)
+                if not np.array_equal(out, first):
+                    raise AssertionError(f"{label}: {be_name} differs from "
+                                         f"{names[0]}")
+        print(f"   {label}: {', '.join(names)} pass check_outputs against "
+              f"the oracle and agree bitwise")
     done(t0)
 
     # -- kernel times at the main path's shapes -------------------------
@@ -327,7 +442,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     tiles = (0.5 + torch.zeros(WIDTH, 8, 128, device=dev))
     its = torch.full((WIDTH,), MAIN_ITERS, dtype=torch.int32, device=dev)
     rows.append(("K1", timed(lambda: taskbench_compute(tiles, its,
-                                                       MAIN_ITERS), 200),
+                                                       MAIN_ITERS), 200,
+                             one_kernel=True),
                  timed(lambda: taskbench_compute_plain(tiles, its,
                                                        MAIN_ITERS), 20),
                  bound(WIDTH * 1024 * 2 * MAIN_ITERS,
@@ -337,28 +453,61 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     nwin = size // span
     reps = sum(MEM_ITERS // nwin + (w < MEM_ITERS % nwin)
                for w in range(nwin))
-    rows.append(("K2", timed(lambda: taskbench_memory(xs, itm, span), 50),
+    rows.append(("K2", timed(lambda: taskbench_memory(xs, itm, span), 50,
+                             one_kernel=True),
                  timed(lambda: taskbench_memory_plain(xs, itm, span), 5),
                  bound(WIDTH * reps * span * 2, WIDTH * (size * 8 + 4))))
     tabs, kw, _, _ = fused_pair([stencil])
     table_bytes = sum(t.numel() * 4 for t in tabs[:4])
-    rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10),
+    rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10,
+                             one_kernel=True),
                  timed(lambda: taskbench_fused_plain(*tabs, **kw), 2),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        table_bytes + WIDTH * stencil.payload_elems * 4)))
-    for name, (ms, ms_s), (pms, pms_s), (bs, by) in rows:
-        print(f"   {name}: device {ms:.6f} ms (stream {ms_s:.6f} ms), plain "
-              f"device {pms:.6f} ms (stream {pms_s:.6f} ms), bound "
-              f"{bs * 1e3:.6f} ms ({by})")
+    plan, otabs, okw, _, _ = onesided_pair(stencil, WIDTH)
+    n_off = len(plan._onesided_offsets)
+    # tables once, the output once, and every put row written and read once
+    inbox_bytes = 2 * WIDTH * (HEIGHT - 1) * n_off * plan.a2a_cap \
+        * stencil.payload_elems * 4
+    rows.append(("K4", timed(lambda: taskbench_onesided(*otabs, **okw), 10,
+                             one_kernel=True),
+                 timed(lambda: taskbench_onesided_plain(*otabs, **okw), 2),
+                 bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
+                       sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
+                       + WIDTH * stencil.payload_elems * 4)))
+    for name, t, plain, (bs, by) in rows:
+        print(f"   {name}: {t.describe()}; plain version {plain.describe()}; "
+              f"bound {bs * 1e3:.6f} ms ({by})")
+    (k3_ms, k3_s), (k4_ms, k4_s) = rows[2][1][:2], rows[3][1][:2]
+    print(f"   same graph (stencil, W={WIDTH}, H={HEIGHT}): K3 {k3_ms:.6f} ms "
+          f"device ({k3_ms / HEIGHT * 1e3:.4f} us a timestep, grid barrier), "
+          f"K4 at {WIDTH} ranks {k4_ms:.6f} ms ({k4_ms / HEIGHT * 1e3:.4f} "
+          f"us a timestep, flags); stream {k3_s:.6f} / {k4_s:.6f} ms")
+    # the synchronization floor: the same graph with the empty body
+    empty = stencil.with_kernel(KernelSpec(kind="empty"))
+    etabs, ekw, _, _ = fused_pair([empty])
+    _, eotabs, eokw, _, _ = onesided_pair(empty, WIDTH)
+    k3e = timed(lambda: taskbench_fused(*etabs, **ekw), 10, one_kernel=True)
+    k4e = timed(lambda: taskbench_onesided(*eotabs, **eokw), 10,
+                one_kernel=True)
+    print(f"   empty body, same graph: K3 {k3e.device / HEIGHT * 1e3:.4f} us "
+          f"a timestep, {k3e.describe()}; K4 at {WIDTH} ranks "
+          f"{k4e.device / HEIGHT * 1e3:.4f} us a timestep, {k4e.describe()}")
+    _, otabs4, okw4, _, _ = onesided_pair(stencil, 4)
+    k4r4 = timed(lambda: taskbench_onesided(*otabs4, **okw4), 5,
+                 one_kernel=True)
+    print(f"   K4 at 4 ranks ({WIDTH // 4} tasks a CTA a timestep): "
+          f"{k4r4.device / HEIGHT * 1e3:.4f} us a timestep, "
+          f"{k4r4.describe()}")
     print(f"   ({card})")
-    for fn in (taskbench_compute, taskbench_memory, taskbench_fused):
+    for fn in counters.values():
         fn.launches = 0  # timing launches are not main-path launches
     done(t0)
 
     # -- 6. METG on the card --------------------------------------------
     t0 = phase("6. METG: stencil/compute W=132 H=1000, iterations 4096 -> 1")
     results = {}
-    for be_name in ("cuda-fused", "torch-scan"):
+    for be_name in ("cuda-fused", ONESIDED, "torch-scan"):
         spec = ScenarioSpec(
             name=f"metg.{be_name}.stencil", backend=be_name,
             pattern="stencil", kernel="compute", width=WIDTH, height=HEIGHT,
@@ -377,7 +526,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     common = max(r.peak_rate for r in results.values())
     for be_name, res in results.items():
         m = compute_metg(res.points, peak_rate=common).metg
-        print(f"   {be_name} against the best rate of both "
+        print(f"   {be_name} against the best rate of the three "
               f"({common:.6e} FLOP/s): METG {m * 1e6 if m else None} us")
     print(f"   ({card})")
     done(t0)
@@ -389,12 +538,15 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                "src/repro/kernels/memory.py:26"),
         "K3": ("taskbench_fused", "src/repro_torch/kernels/csrc/fused.cu",
                "src/repro/backends/megakernel.py:79"),
+        "K4": ("taskbench_onesided",
+               "src/repro_torch/kernels/csrc/onesided.cu",
+               "src/repro/backends/megakernel.py:142"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by, "library_ms": None}
-            for k, (ms, _), (pms, _), (bs, by) in rows]
+            for k, (ms, *_), (pms, *_), (bs, by) in rows]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,264 @@
+"""Communication planning for rank-parallel backends (the comm-plan layer).
+
+The port's own copy of the numpy planning half of the reference's
+``repro.dist.collectives``: which ranks own which columns, and which
+payload rows move between them each timestep.  ``CommPlan`` is that plan:
+
+* **analysis** — ``dependency_reach``/``directional_reach`` scan the
+  dependence offsets of ``TaskGraph.dependence_matrices()`` with one
+  ``np.nonzero`` (one timestep slice for time-invariant graphs);
+* **placement** — columns are blocked over ``ndev`` ranks, ragged widths
+  padded to the next multiple with *dead columns* (no dependencies, zero
+  iterations) that ``trim`` drops again;
+* **movement** — five modes: ``ring``, ``halo`` and ``allgather`` (picked
+  by ``auto`` from the reach), and ``a2a`` and ``onesided``, which must be
+  asked for.  ``a2a`` and ``onesided`` share one per-pair slot layout:
+  rank ``src`` sends rank ``dst`` exactly the rows ``dst``'s tasks read
+  from ``src``'s block, padded to ``a2a_cap`` rows a pair.
+  ``onesided`` moves them by producer puts and signal flags
+  (``_onesided_offsets`` is the put schedule), which is what the
+  ``cuda-fused[comm=onesided]`` kernel K4 runs.
+
+``local_mats`` are the dependence matrices re-indexed into each rank's
+context window: ``[left halo | local block | right halo]`` for the
+ppermute modes, ``[recv buffers (src-major) | local block]`` for
+``a2a``/``onesided``.  The runtime half of the reference (``exchange`` and
+the one-sided push/wait, which run inside ``shard_map``) is not copied:
+the port's executing backends move the rows themselves.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..core.graph import TaskGraph
+
+MODES = ("auto", "ring", "halo", "allgather", "a2a", "onesided")
+
+
+def _dep_offsets(graph: TaskGraph) -> np.ndarray:
+    """All distinct dependence offsets ``j - i`` across the graph."""
+    if graph.height <= 1:
+        return np.empty((0,), np.int64)
+    if graph.is_time_invariant():
+        mats = graph.dependence_matrix(1)[None]
+    else:
+        mats = graph.dependence_matrices()[1:]
+    _, i, j = np.nonzero(mats)
+    return np.unique(j.astype(np.int64) - i.astype(np.int64))
+
+
+def directional_reach(graph: TaskGraph) -> Tuple[int, int]:
+    """(left, right): how far deps reach toward lower / higher columns."""
+    offs = _dep_offsets(graph)
+    if offs.size == 0:
+        return 0, 0
+    return int(max(-offs.min(), 0)), int(max(offs.max(), 0))
+
+
+def dependency_reach(graph: TaskGraph) -> int:
+    """max |j - i| over all deps — the halo width an MPI rank would post."""
+    left, right = directional_reach(graph)
+    return max(left, right)
+
+
+# eq=False: ndarray fields would make the generated __eq__/__hash__ raise
+@dataclasses.dataclass(frozen=True, eq=False)
+class CommPlan:
+    """How one graph's payloads are laid out and moved over ``ndev`` ranks.
+
+    ``local_mats``/``iters`` are padded to ``padded_width`` columns; dead
+    columns (>= ``width``) have empty dependence rows and zero iterations,
+    and are sliced away by ``trim``.
+    """
+
+    mode: str            # "ring" | "halo" | "allgather" | "a2a" | "onesided"
+    axis: str            # name of the axis the ranks live on
+    ndev: int
+    width: int           # real graph width
+    padded_width: int    # next multiple of ndev
+    local: int           # columns per rank
+    halo: int            # exchange width (0 => no communication)
+    local_mats: np.ndarray   # (H, padded_width, ctx) uint8
+    iters: np.ndarray        # (H, padded_width) int32
+    # the executing program may issue timestep t+1's exchange ahead of
+    # t+1's task body; a program-shape flag, the plan is the same
+    comm_overlap: bool = False
+    # a2a/onesided modes: [src, dst] row counts and padded send-row indices
+    send_counts: Optional[np.ndarray] = None   # (ndev, ndev) int64
+    a2a_cap: int = 0                           # rows per (src, dst) buffer
+    a2a_send_idx: Optional[np.ndarray] = None  # (ndev, ndev, cap) int32
+
+    @property
+    def ragged(self) -> bool:
+        return self.padded_width != self.width
+
+    @property
+    def recv_counts(self) -> Optional[np.ndarray]:
+        """[dst, src] rows received — the transpose of ``send_counts``:
+        every row sent is received exactly once (token conservation)."""
+        return None if self.send_counts is None else self.send_counts.T
+
+    @property
+    def context_width(self) -> int:
+        """Columns of t-1 payload visible to each rank after exchange."""
+        return self.local_mats.shape[-1]
+
+    def trim(self, gathered):
+        """Drop dead padding columns from a (padded_width, ...) output."""
+        return gathered[: self.width]
+
+    @functools.cached_property
+    def _onesided_offsets(self) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+        """Static transport schedule: one entry per *active* ring offset.
+
+        ``(offset, idx_table, flag_table)``: rank ``r`` puts the payload
+        rows ``idx_table[r]`` to rank ``(r + offset) % ndev``;
+        ``flag_table[r]`` is 1 where the pair is live.  Every rank runs
+        every offset's put — the SPMD-uniform schedule — and dead pairs
+        deliver rows no ``local_mats`` entry reads.
+        """
+        assert self.mode == "onesided" and self.send_counts is not None
+        out: List[Tuple[int, np.ndarray, np.ndarray]] = []
+        for off in range(1, self.ndev):
+            dsts = (np.arange(self.ndev) + off) % self.ndev
+            live = self.send_counts[np.arange(self.ndev), dsts] > 0
+            if not live.any():
+                continue
+            idx = self.a2a_send_idx[np.arange(self.ndev), dsts]  # (ndev, cap)
+            out.append((off, idx.astype(np.int32),
+                        live.astype(np.float32)))
+        return out
+
+
+def _padded_static_inputs(graph: TaskGraph, padded: int):
+    """Dep matrices (H, padded, padded) u8 + iteration counts (H, padded)."""
+    from ..backends import body  # local import: backends import this module
+
+    mats, iters = body.graph_static_inputs(graph)
+    W = graph.width
+    if padded == W:
+        return mats, iters
+    H = graph.height
+    pm = np.zeros((H, padded, padded), np.uint8)
+    pm[:, :W, :W] = mats
+    pi = np.zeros((H, padded), np.int32)  # dead columns: no work
+    pi[:, :W] = iters
+    return pm, pi
+
+
+def plan_comm(
+    graph: TaskGraph,
+    ndev: int,
+    axis: str,
+    comm: str = "auto",
+    prefer_ring: bool = False,
+    comm_overlap: bool = False,
+) -> CommPlan:
+    """Build the communication plan for ``graph`` over ``ndev`` ranks.
+
+    ``comm`` forces a mode; ``auto`` picks the cheapest legal one (never
+    ``a2a`` or ``onesided``, which must be asked for).  With
+    ``prefer_ring``, graphs whose deps reach only toward lower columns use
+    the one-directional ring instead of the bidirectional halo.
+    ``comm_overlap`` is recorded on the plan for the executing backend.
+    """
+    if comm not in MODES:
+        raise ValueError(f"unknown comm mode {comm!r}; known: {MODES}")
+    if ndev < 1:
+        raise ValueError(f"need at least one rank, got {ndev}")
+    W, H = graph.width, graph.height
+    padded = -(-W // ndev) * ndev
+    local = padded // ndev
+    left, right = directional_reach(graph)
+    reach = max(left, right)
+
+    if comm == "auto":
+        if reach > local:
+            mode = "allgather"
+        elif prefer_ring and right == 0:
+            mode = "ring"
+        else:
+            mode = "halo"
+    else:
+        mode = comm
+        if mode == "ring" and right > 0:
+            raise ValueError(
+                f"ring comm needs left-only deps, but reach is "
+                f"(left={left}, right={right})")
+        if mode in ("ring", "halo") and reach > local:
+            raise ValueError(
+                f"{mode} comm cannot cover reach {reach} with "
+                f"{local} columns per rank; use allgather")
+
+    mats, iters = _padded_static_inputs(graph, padded)
+    if mode in ("a2a", "onesided"):
+        plan = _plan_a2a(graph, ndev, axis, mats, iters, padded, local,
+                         mode=mode)
+        return dataclasses.replace(plan, comm_overlap=comm_overlap) \
+            if comm_overlap else plan
+    if mode == "allgather":
+        halo = 0
+        lmats = mats  # context is the full gathered (padded) width
+    else:
+        halo = min(reach if mode == "halo" else left, local)
+        lhalo, rhalo = halo, (halo if mode == "halo" else 0)
+        ctx = lhalo + local + rhalo
+        lmats = np.zeros((H, padded, ctx), np.uint8)
+        t_idx, i_idx, j_idx = np.nonzero(mats)
+        # re-index dep columns into [left halo | local block | right halo]
+        lj = j_idx - ((i_idx // local) * local - lhalo)
+        assert ((0 <= lj) & (lj < ctx)).all(), (mode, halo, local)
+        lmats[t_idx, i_idx, lj] = 1
+
+    return CommPlan(
+        mode=mode, axis=axis, ndev=ndev, width=W, padded_width=padded,
+        local=local, halo=halo, local_mats=lmats, iters=iters,
+        comm_overlap=comm_overlap,
+    )
+
+
+def _plan_a2a(graph: TaskGraph, ndev: int, axis: str,
+              mats: np.ndarray, iters: np.ndarray,
+              padded: int, local: int, mode: str = "a2a") -> CommPlan:
+    """Per-pair dispatch plan: rank ``src`` sends rank ``dst`` exactly the
+    payload columns ``dst``'s tasks read from ``src``'s block (union over
+    timesteps, one plan reused per step).  Buffers are padded to the max
+    pair count; unused send slots carry local row 0, which no
+    ``local_mats`` entry references.  ``onesided`` shares this layout.
+    """
+    H = graph.height
+    t_idx, i_idx, j_idx = np.nonzero(mats)
+    src, dst = j_idx // local, i_idx // local
+    remote = src != dst
+    # unique (src, dst, j) triples, lexically sorted — fixes the slot order
+    triples = np.unique(
+        np.stack([src[remote], dst[remote], j_idx[remote]], axis=1), axis=0)
+    send_counts = np.zeros((ndev, ndev), np.int64)
+    np.add.at(send_counts, (triples[:, 0], triples[:, 1]), 1)
+    cap = int(send_counts.max()) if triples.size else 0
+    send_idx = np.zeros((ndev, ndev, cap), np.int32)
+    # context offset of remote column j for its consumer rank d:
+    # [recv buffers (ndev * cap, src-major) | local block]
+    col_off = np.zeros((ndev, padded), np.int64)
+    slot = np.zeros((ndev, ndev), np.int64)
+    for s, d, j in triples:
+        k = slot[s, d]
+        slot[s, d] += 1
+        send_idx[s, d, k] = j - s * local
+        col_off[d, j] = s * cap + k
+    ctx = ndev * cap + local
+    lmats = np.zeros((H, padded, ctx), np.uint8)
+    r = i_idx // local
+    off = np.where(j_idx // local == r, ndev * cap + (j_idx - r * local),
+                   col_off[r, j_idx])
+    lmats[t_idx, i_idx, off] = 1
+    return CommPlan(
+        mode=mode, axis=axis, ndev=ndev, width=graph.width,
+        padded_width=padded, local=local, halo=0, local_mats=lmats,
+        iters=iters, send_counts=send_counts, a2a_cap=cap,
+        a2a_send_idx=send_idx,
+    )

@@ -5,8 +5,9 @@
 - memory: K2, the memory kernel (``csrc/memory.cu``)
 - _build: the nvcc build of ``csrc/`` and the ctypes loader
 
-K3, the fused megakernel (``csrc/fused.cu``), is wrapped in
-``backends.megakernel``, beside the backend that runs it.
+K3, the fused megakernel (``csrc/fused.cu``), and K4, its one-sided
+multi-rank form (``csrc/onesided.cu``), are wrapped in
+``backends.megakernel``, beside the backend that runs them.
 """
 from . import bodies
 from .compute import taskbench_compute, taskbench_compute_plain

@@ -41,6 +41,10 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                _I),
     "taskbench_fused_blocks": ([_I, _I], _I),
+    "taskbench_onesided_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P], _I),
+    "taskbench_onesided_blocks": ([_I], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

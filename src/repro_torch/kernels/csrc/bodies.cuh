@@ -1,5 +1,6 @@
-// Device-side Task Bench bodies shared by the three kernels (K1 compute.cu,
-// K2 memory.cu, K3 fused.cu).
+// Device-side Task Bench bodies shared by the kernels (K1 compute.cu,
+// K2 memory.cu, K3 fused.cu, K4 onesided.cu).  K3 and K4 run the same task:
+// warp_combine, run_body and write_payload below.
 //
 // Numerics: the oracle (core/kernel_ref.py) rounds after every multiply and
 // every add.  nvcc would contract `a * a - 1.0f` and `x * 1.0001f + 1.0f`
@@ -17,6 +18,9 @@ constexpr int kTileElems = 8 * 128;        // core.kernel_spec.COMPUTE_TILE
 constexpr int kMxuDim = 128;               // core.kernel_spec.MXU_DIM
 constexpr int kChecksumMask = (1 << 20) - 1;  // x % 2^20 for x >= 0
 constexpr float kFoldBlock = 0x1p-46f;     // kernels.bodies.FOLD_BLOCK
+
+// backends.megakernel.KIND_CODES
+enum Kind { kEmpty = 0, kCompute = 1, kComputeMxu = 2, kMemory = 3 };
 
 __device__ __forceinline__ float compute_step(float a) {
   return __fsub_rn(__fmul_rn(a, a), 1.0f);
@@ -62,6 +66,94 @@ __device__ __forceinline__ void memory_window(const float* in, float* out,
     float v = in[e];
     for (int r = 0; r < reps; ++r) v = memory_step(v);
     out[e] = v;
+  }
+}
+
+// The dependency combine of one task, run by the 32 lanes of warp 0: the
+// sum mod 2^20 of value(idx[r]) over the live slots r < R, lane r taking
+// slots r, r+32, ...  Every partial sum stays below 2^21, so int32 holds it
+// before the mask.  The sum lands in lane 0.
+template <class Value>
+__device__ __forceinline__ int warp_combine(const int* idx, const int* mask,
+                                            int R, Value value) {
+  int part = 0;
+  for (int r = threadIdx.x; r < R; r += 32)
+    if (mask[r] != 0) part = (part + value(idx[r])) & kChecksumMask;
+  for (int off = 16; off > 0; off >>= 1)
+    part = (part + __shfl_down_sync(0xffffffffu, part, off)) & kChecksumMask;
+  return part;
+}
+
+// The task body of one task, run by all kThreads threads of the block:
+// returns the kernel result, the same value in every thread.  The state
+// lives in the task's scratch row `scr` in global memory (see fused.cu).
+template <int kThreads>
+__device__ float run_body(int kind, float seed, int n, float* scr,
+                          const float* mxu_w, int span, int size) {
+  if (kind == kEmpty) return __fmul_rn(seed, 0.0f);
+
+  if (kind == kCompute) {
+    const float start = __fadd_rn(0.5f, seed);
+    for (int e = threadIdx.x; e < kTileElems; e += kThreads) scr[e] = start;
+    __syncthreads();
+    compute_tile<kThreads>(scr, scr, n);
+    __syncthreads();
+    return scr[0];
+  }
+
+  if (kind == kMemory) {
+    const float start = __fadd_rn(1.0f, seed);
+    for (int e = threadIdx.x; e < size; e += kThreads) scr[e] = start;
+    __syncthreads();
+    const int nwin = size / span;
+    for (int w = 0; w < nwin; ++w) {
+      const int reps = window_reps(n, nwin, w);
+      if (reps == 0) break;  // later windows get no more steps than this one
+      memory_window(scr + static_cast<size_t>(w) * span,
+                    scr + static_cast<size_t>(w) * span, span, reps);
+    }
+    __syncthreads();
+    return scr[0];
+  }
+
+  // compute_mxu: b <- (b @ w) / 128 + b / 2, ping-ponging two 128x128
+  // buffers of the task's scratch row
+  constexpr int kElems = kMxuDim * kMxuDim;
+  const float start = __fadd_rn(0.25f, seed);
+  float* cur = scr;
+  float* nxt = scr + kElems;
+  for (int e = threadIdx.x; e < kElems; e += kThreads) cur[e] = start;
+  __syncthreads();
+  for (int k = 0; k < n; ++k) {
+    for (int o = threadIdx.x; o < kElems; o += kThreads) {
+      const int i = o / kMxuDim, c = o % kMxuDim;
+      const float* brow = cur + i * kMxuDim;
+      float dot = 0.0f;
+      for (int j = 0; j < kMxuDim; ++j)
+        dot = fmaf(brow[j], mxu_w[j * kMxuDim + c], dot);
+      nxt[o] = __fadd_rn(__fmul_rn(dot, 1.0f / kMxuDim),
+                         __fmul_rn(cur[o], 0.5f));
+    }
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  return cur[0];
+}
+
+// The payload row [t, col, base, combined, res, res...] of one task.
+template <int kThreads>
+__device__ __forceinline__ void write_payload(float* out, int P, int t,
+                                              int col, int base,
+                                              int combined, float res) {
+  for (int s = threadIdx.x; s < P; s += kThreads) {
+    float v = res;
+    if (s == 0) v = static_cast<float>(t);
+    else if (s == 1) v = static_cast<float>(col);
+    else if (s == 2) v = static_cast<float>(base);
+    else if (s == 3) v = static_cast<float>(combined);
+    out[s] = v;
   }
 }
 

@@ -37,8 +37,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-enum Kind { kEmpty = 0, kCompute = 1, kComputeMxu = 2, kMemory = 3 };
-
 struct FusedArgs {
   const int* idx;     // (G*H, W, R) dependency columns
   const int* mask;    // (G*H, W, R) 1 where the slot is live
@@ -50,62 +48,6 @@ struct FusedArgs {
   long long scratch_stride;
   int kind, G, H, W, R, P, max_iters, span, size;
 };
-
-// The task body: returns the kernel result, the same value in every thread.
-__device__ float run_body(const FusedArgs& a, float seed, int n,
-                          float* scr) {
-  using namespace taskbench;
-  if (a.kind == kEmpty) return __fmul_rn(seed, 0.0f);
-
-  if (a.kind == kCompute) {
-    const float start = __fadd_rn(0.5f, seed);
-    for (int e = threadIdx.x; e < kTileElems; e += kThreads) scr[e] = start;
-    __syncthreads();
-    compute_tile<kThreads>(scr, scr, n);
-    __syncthreads();
-    return scr[0];
-  }
-
-  if (a.kind == kMemory) {
-    const float start = __fadd_rn(1.0f, seed);
-    for (int e = threadIdx.x; e < a.size; e += kThreads) scr[e] = start;
-    __syncthreads();
-    const int nwin = a.size / a.span;
-    for (int w = 0; w < nwin; ++w) {
-      const int reps = window_reps(n, nwin, w);
-      if (reps == 0) break;  // later windows get no more steps than this one
-      memory_window(scr + static_cast<size_t>(w) * a.span,
-                    scr + static_cast<size_t>(w) * a.span, a.span, reps);
-    }
-    __syncthreads();
-    return scr[0];
-  }
-
-  // compute_mxu: b <- (b @ w) / 128 + b / 2, ping-ponging two 128x128
-  // buffers of the task's scratch row
-  constexpr int kElems = kMxuDim * kMxuDim;
-  const float start = __fadd_rn(0.25f, seed);
-  float* cur = scr;
-  float* nxt = scr + kElems;
-  for (int e = threadIdx.x; e < kElems; e += kThreads) cur[e] = start;
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    for (int o = threadIdx.x; o < kElems; o += kThreads) {
-      const int i = o / kMxuDim, c = o % kMxuDim;
-      const float* brow = cur + i * kMxuDim;
-      float dot = 0.0f;
-      for (int j = 0; j < kMxuDim; ++j)
-        dot = fmaf(brow[j], a.mxu_w[j * kMxuDim + c], dot);
-      nxt[o] = __fadd_rn(__fmul_rn(dot, 1.0f / kMxuDim),
-                         __fmul_rn(cur[o], 0.5f));
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  return cur[0];
-}
 
 __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
   using namespace taskbench;
@@ -122,24 +64,16 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       const int i = task % a.W;
       const size_t row = (static_cast<size_t>(g) * a.H + t) * a.W + i;
 
-      // 1. dependency combine: lane r takes slots r, r+32, ...; every
-      // partial sum stays below 2^21, so int32 holds it before the mask.
-      // At t = 0 there are no dependencies and no previous wave to read.
+      // 1. dependency combine (bodies.cuh); at t = 0 there are no
+      // dependencies and no previous wave to read
       if (threadIdx.x < 32) {
-        int part = 0;
-        if (t > 0) {
-          for (int r = threadIdx.x; r < a.R; r += 32) {
-            if (a.mask[row * a.R + r] != 0) {
-              const size_t src =
-                  static_cast<size_t>(g) * a.W + a.idx[row * a.R + r];
-              part = (part + static_cast<int>(prev[src * a.P + 3]))
-                     & kChecksumMask;
-            }
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1)
-          part = (part + __shfl_down_sync(0xffffffffu, part, off))
-                 & kChecksumMask;
+        const float* prev_g = prev + static_cast<size_t>(g) * a.W * a.P;
+        const int part = warp_combine(
+            a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
+            [&](int j) {
+              return static_cast<int>(
+                  prev_g[static_cast<size_t>(j) * a.P + 3]);
+            });
         if (threadIdx.x == 0) s_acc = part;
       }
       __syncthreads();
@@ -151,18 +85,12 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       const int n = min(max(a.iters[row], 0), a.max_iters);
       const float seed = __fmul_rn(static_cast<float>(acc), kFoldBlock);
       float* scr = a.scratch + static_cast<size_t>(task) * a.scratch_stride;
-      const float res = run_body(a, seed, n, scr);
+      const float res = run_body<kThreads>(a.kind, seed, n, scr, a.mxu_w,
+                                           a.span, a.size);
 
       // 4. the payload row; slot 1 is the column within its graph
-      float* out = cur + static_cast<size_t>(task) * a.P;
-      for (int s = threadIdx.x; s < a.P; s += kThreads) {
-        float v = res;
-        if (s == 0) v = static_cast<float>(t);
-        else if (s == 1) v = static_cast<float>(i);
-        else if (s == 2) v = static_cast<float>(base);
-        else if (s == 3) v = static_cast<float>(combined);
-        out[s] = v;
-      }
+      write_payload<kThreads>(cur + static_cast<size_t>(task) * a.P, a.P, t,
+                              i, base, combined, res);
       __syncthreads();  // s_acc is rewritten by the next task
     }
     grid.sync();

@@ -199,17 +199,22 @@ def test_spec_grammar():
             tb.parse_backend_spec(bad)
 
 
+KNOWN_OPTIONS = {"torch-scan": "\\['device'\\]",
+                 "cuda-fused": "\\['device', 'comm', 'ranks'\\]"}
+
+
 @pytest.mark.parametrize("name", ["torch-scan", "cuda-fused"])
 def test_unknown_option_is_rejected_naming_the_key(name):
     with pytest.raises(ValueError, match="'devcie'.*known options: "
-                                         "\\['device'\\]"):
+                                         + KNOWN_OPTIONS[name]):
         tb.get_backend(f"{name}[devcie=cpu]")
     with pytest.raises(KeyError, match="unknown backend"):
         tb.get_backend("xla-scan")
 
 
 @pytest.mark.parametrize("spec", ["torch-scan", "cuda-fused",
-                                  "torch-scan[device=cuda]"])
+                                  "torch-scan[device=cuda]",
+                                  "cuda-fused[comm=onesided,ranks=4]"])
 def test_no_device_and_no_card_raises(monkeypatch, spec):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 on the card, against their plain versions.
+"""The CUDA kernels K1-K4 on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
 one.  The file imports neither JAX nor the reference package, so it runs
@@ -13,9 +13,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.backends.megakernel import (  # noqa: E402
-    MegakernelBackend, tables_from_numpy, taskbench_fused,
-    taskbench_fused_plain)
+    MegakernelBackend, onesided_tables_from_numpy, tables_from_numpy,
+    taskbench_fused, taskbench_fused_plain, taskbench_onesided,
+    taskbench_onesided_plain)
 from repro_torch.core import make_graph, replicate  # noqa: E402
+from repro_torch.dist import plan_comm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (taskbench_compute,  # noqa: E402
                                  taskbench_compute_plain, taskbench_memory,
                                  taskbench_memory_plain)
@@ -79,18 +82,70 @@ def test_k3_on_card_matches_plain(cuda, kind, pattern):
             assert torch.equal(got, want)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ngraphs", [1, 3])
-def test_k3_is_one_cuda_kernel_per_run(cuda, ngraphs):
+def profiled_kernels(runner) -> list:
+    """Names of the CUDA kernels ``torch.profiler`` records in one run."""
     from torch.profiler import ProfilerActivity, profile
 
-    g = make_graph(width=8, height=6, iterations=4)
-    runner = get_backend("cuda-fused").prepare_many(replicate(g, ngraphs))
     runner()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         runner()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+def test_k3_is_one_cuda_kernel_per_run(cuda, ngraphs):
+    g = make_graph(width=8, height=6, iterations=4)
+    runner = get_backend("cuda-fused").prepare_many(replicate(g, ngraphs))
+    kernels = profiled_kernels(runner)
     assert len(kernels) == 1, kernels
+
+
+def onesided_tables(g, ranks, device):
+    offsets, tabs = MegakernelBackend._onesided_tables(
+        g, plan_comm(g, ranks, "cols", comm="onesided"))
+    return onesided_tables_from_numpy(offsets, tabs, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["empty", "compute", "memory",
+                                  "compute_mxu"])
+@pytest.mark.parametrize("pattern", ["stencil", "fft", "random", "spread"])
+def test_k4_on_card_matches_plain(cuda, kind, pattern):
+    for width, ranks in ((8, 2), (10, 4), (6, 8), (8, 8)):
+        g = make_graph(width=width, height=8, pattern=pattern, kernel=kind,
+                       iterations=5, imbalance=0.5, span_bytes=512,
+                       scratch_bytes=2048)
+        tabs = onesided_tables(g, ranks, cuda)
+        kw = dict(kernel=g.kernel, height=g.height,
+                  payload_elems=g.payload_elems)
+        n = taskbench_onesided.launches
+        got = taskbench_onesided(*tabs, **kw)
+        assert taskbench_onesided.launches == n + 1
+        want = taskbench_onesided_plain(*tabs, **kw)
+        if kind == "compute_mxu":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got, want), (width, ranks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+def test_k4_is_one_cuda_kernel_per_graph(cuda, ngraphs):
+    g = make_graph(width=8, height=6, iterations=4)
+    runner = get_backend("cuda-fused[comm=onesided,ranks=4]").prepare_many(
+        replicate(g, ngraphs))
+    kernels = profiled_kernels(runner)
+    assert len(kernels) == ngraphs, kernels
+
+
+@pytest.mark.gpu
+def test_k4_oversubscribed_ranks_raise(cuda):
+    limit = _build.library().taskbench_onesided_blocks(cuda.index or 0)
+    assert limit >= 132
+    g = make_graph(width=limit + 1, height=2, iterations=1)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        get_backend(f"cuda-fused[comm=onesided,ranks={limit + 1}]").run([g])
