@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the four hand-written CUDA kernels from ``src/repro_torch/kernels/
+Builds the five hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
 raise on failure:
 
@@ -15,7 +15,10 @@ raise on failure:
    1e-6; K4 on every pattern at 2, 4 and 8 ranks (ragged widths included)
    and at full size on stencil (4 and 132 ranks), nearest[radix=5] (132),
    memory with 1 MiB of scratch per column (132) and spread[radix=5] (8
-   ranks, puts to every rank);
+   ranks, puts to every rank); K6 (SSD) at the shapes of
+   ``tests/test_kernels.py``, chunk 1 and 37, a ragged S=100 through
+   ``ops.ssd`` and the full-width Mamba-2 2.7B prefill shape in float32 and
+   in the model's types, within the tolerance ``PERF.md`` states;
 4. the structural pin, over ``PIN_RUNS`` runs: the launch counter reads
    exactly one K3 launch a ``cuda-fused`` run, for 1 graph and for 3
    stacked graphs, and one K4 launch a graph of a
@@ -31,7 +34,17 @@ raise on failure:
    every output checked against the numpy oracle and all backends bitwise
    equal;
 6. METG on the card: ``run_scenario`` with the wall clock over iterations
-   4096 -> 1 for the three backends.
+   4096 -> 1 for the three backends;
+7. the serving path: ``mamba2-2.7b`` at full width (64 layers, bf16,
+   random weights from seed 0) served by ``ServeEngine(batch_slots=4,
+   chunk_size=8)`` on six requests, the launch counts zeroed just before
+   and read just after; chunked and host decode give the same tokens, a
+   request served alone the same tokens as in the batch, K6 runs once a
+   layer for every prefill of more than one token, and the last prefill
+   logits with K6 agree with the same forward on ``ssd_chunked_plain``
+   (in float32 within 1e-4; in bf16 only a guard, see LOGITS_BF16_RTOL);
+   time to first token, the decode rate at 4 live slots and the profiles
+   of one decode step and of the 1000-token prefill are printed.
 
 The line before the last lists the kernels with their launches on the main
 path, errors, times and bounds; the last line is the device record.  Exits
@@ -39,6 +52,7 @@ non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,6 +76,7 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     taskbench_onesided_plain)
 from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
                                compute_metg, run_scenario)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
                               replicate)
@@ -69,6 +84,12 @@ from repro_torch.dist import plan_comm  # noqa: E402
 from repro_torch.kernels import (_build, bodies,  # noqa: E402
                                  taskbench_compute, taskbench_compute_plain,
                                  taskbench_memory, taskbench_memory_plain)
+from repro_torch.kernels import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
+                                     ssd_chunked_plain)
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models.cache import init_caches  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_LANES_PER_SM = 128
@@ -78,6 +99,22 @@ MEM_SCRATCH = 1 << 20
 MXU_RTOL, MXU_ATOL = 1e-5, 1e-6
 ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
 PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
+# K6: tests/test_kernels.py's SSD cases, chunk 1 and 37 (B, S, H, P, G, N,
+# chunk), then the full-width Mamba-2 2.7B prefill of 1024 tokens
+SSD_CASES = ((2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
+             (2, 64, 2, 64, 2, 32, 64), (1, 9, 2, 8, 1, 4, 1),
+             (2, 74, 4, 16, 2, 8, 37))
+SSD_FULL = (1, 1024, 80, 64, 1, 128, 128)
+SSD_TOL = 1e-4  # float32: the same products summed in another order
+# relative L2 of the 1000-token prefill logits, K6 against plain SSD: tight
+# in a float32 forward; in the bf16 forward a guard against gross error
+# only, since any float32-level change of y moves bf16 logits by ~5e-2
+# (tests/test_torch_ssm.py::test_bf16_rounding_cascade_dwarfs_f32_drift)
+LOGITS_F32_RTOL, LOGITS_BF16_RTOL = 1e-4, 0.25
+MODEL = "mamba2-2.7b"
+# (prompt tokens, new tokens) of the served requests
+SERVE_REQS = ((1, 8), (37, 16), (128, 24), (300, 32), (1000, 12), (1500, 20))
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_LEN = 4, 8, 2048
 
 
 def phase(title: str):
@@ -157,6 +194,51 @@ def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
     torch.cuda.synchronize()
     return Timing(device / 1e3, start.elapsed_time(end) / reps,
                   memset / 1e3 / reps, span / 1e3 / reps, len(kernels), reps)
+
+
+def ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
+    """Random SSD inputs (as tests/test_torch_gpu.py makes them)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5)
+    Bm = torch.randn(B, S, G, N, generator=g) * 0.5
+    Cm = torch.randn(B, S, G, N, generator=g) * 0.5
+    return (x.to(dev, dtype), dt.to(dev), A.to(dev), Bm.to(dev, dtype),
+            Cm.to(dev, dtype))
+
+
+def ssd_agree(name: str, got, want) -> float:
+    """K6 against its plain version: y and state within SSD_TOL (float32),
+    a bf16 y within SSD_TOL plus one bf16 ulp; returns the max abs error."""
+    worst = 0.0
+    for what, a, b in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        allowed = SSD_TOL * (1 + b.abs())
+        if got[0].dtype == torch.bfloat16 and what == "y":
+            allowed = allowed + torch.exp2(torch.floor(torch.log2(
+                b.abs().clamp_min(2 ** -126))) - 7)
+        err, rel = diff.max().item(), (diff / b.abs().clamp_min(1e-6)).max()
+        print(f"   K6 {name} {what}: max abs err {err:.3e}, max rel err "
+              f"{rel.item():.3e} (max |plain| {b.abs().max().item():.3f})")
+        if not bool((diff <= allowed).all()) or not bool(a.isfinite().all()):
+            raise AssertionError(f"K6 {name}: {what} differs from its plain "
+                                 f"version beyond the tolerance")
+        worst = max(worst, err)
+    return worst
+
+
+def ssd_bound(B, S, H, P, N, chunk, in_bytes):
+    """(operations, bytes) K6 needs: the causal half of the score and intra
+    products, the inter and state products; inputs read, outputs written
+    once (x, B, C and y in ``in_bytes``, dt, A and the state in f32)."""
+    nc = S // chunk
+    tri = chunk * (chunk + 1) // 2
+    flops = B * H * nc * (2 * tri * (N + P) + 4 * chunk * N * P)
+    nbytes = (2 * B * S * H * P * in_bytes + 2 * B * S * N * in_bytes
+              + B * S * H * 4 + H * 4 + B * H * P * N * 4)
+    return flops, nbytes
 
 
 def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -240,7 +322,9 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
             print("   " + line.strip())
     print(f"   K3 grid for {WIDTH} tasks: "
           f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks; K4 holds at most "
-          f"{lib.taskbench_onesided_blocks(0)} co-resident ranks")
+          f"{lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
+          f"uses {lib.ssd_chunked_smem_bytes(64, 128, 128)} bytes of shared "
+          f"memory a CTA at P=64, N=128, chunk 128")
     done(t0)
 
     def bound(flops: float, nbytes: float):
@@ -354,9 +438,26 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         print(f"   K4 full size {name} ranks={ranks} (W={WIDTH}, H={HEIGHT}"
               f", {n_off} ring offsets, cap {plan.a2a_cap}, inbox "
               f"{inbox / 1e6:.3f} MB): max abs diff {e}")
+    errs["K6"] = 0.0
+    for case in SSD_CASES + (SSD_FULL,):
+        *shape, chunk = case
+        args = ssd_inputs(*shape, dev)
+        errs["K6"] = max(errs["K6"], ssd_agree(
+            f"{tuple(shape)} chunk {chunk} f32", ssd_chunked(*args, chunk=chunk),
+            ssd_chunked_plain(*args, chunk=chunk)))
+    args = ssd_inputs(1, 100, 4, 16, 2, 8, dev)  # ragged: padded to 128
+    errs["K6"] = max(errs["K6"], ssd_agree(
+        "ragged S=100 chunk 32 (ops.ssd)", ssd_ops.ssd(*args, chunk=32),
+        ssd_ops.ssd(*args, chunk=32, impl="plain")))
+    *shape, chunk = SSD_FULL
+    args = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
+    errs["K6"] = max(errs["K6"], ssd_agree(
+        f"{tuple(shape)} chunk {chunk} bf16 x/B/C", ssd_chunked(*args,
+                                                               chunk=chunk),
+        ssd_chunked_plain(*args, chunk=chunk)))
     print(f"   launches so far: K1 {taskbench_compute.launches}, "
           f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}, "
-          f"K4 {taskbench_onesided.launches}")
+          f"K4 {taskbench_onesided.launches}, K6 {ssd_chunked.launches}")
     done(t0)
 
     # -- 4. the structural pin -----------------------------------------
@@ -398,7 +499,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                f"cuda-fused, {ONESIDED}")
     scan = get_backend("torch-scan")
     counters = {"K1": taskbench_compute, "K2": taskbench_memory,
-                "K3": taskbench_fused, "K4": taskbench_onesided}
+                "K3": taskbench_fused, "K4": taskbench_onesided,
+                "K6": ssd_chunked}
     cases = (("stencil", "stencil", [stencil]),
              ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
              ("memory 1 MiB", "memory", [memory]))
@@ -475,6 +577,13 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
                        + WIDTH * stencil.payload_elems * 4)))
+    *shape, chunk = SSD_FULL
+    sargs = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
+    B_, S_, H_, P_, _, N_ = shape
+    rows.append(("K6", timed(lambda: ssd_chunked(*sargs, chunk=chunk), 20,
+                             one_kernel=True),
+                 timed(lambda: ssd_chunked_plain(*sargs, chunk=chunk), 3),
+                 bound(*ssd_bound(B_, S_, H_, P_, N_, chunk, 2))))
     for name, t, plain, (bs, by) in rows:
         print(f"   {name}: {t.describe()}; plain version {plain.describe()}; "
               f"bound {bs * 1e3:.6f} ms ({by})")
@@ -531,6 +640,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   ({card})")
     done(t0)
 
+    launches["K6"] = serve_phase(dev, card, counters)
+
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
                "src/repro/kernels/compute.py:23"),
@@ -541,12 +652,179 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         "K4": ("taskbench_onesided",
                "src/repro_torch/kernels/csrc/onesided.cu",
                "src/repro/backends/megakernel.py:142"),
+        "K6": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu",
+               "src/repro/kernels/ssd.py:25"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by, "library_ms": None}
             for k, (ms, *_), (pms, *_), (bs, by) in rows]
+
+
+def to_float32(tree):
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def serve_phase(dev, card: str, counters: dict) -> int:
+    """Phase 7: serve mamba2-2.7b at full width; returns K6's launches."""
+    t0 = phase(f"7. serving {MODEL} at full width: ServeEngine(batch_slots="
+               f"{SERVE_SLOTS}, chunk_size={SERVE_CHUNK}), prompts "
+               f"{[n for n, _ in SERVE_REQS]}")
+    cfg = get_config(MODEL)
+    t1 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"   {MODEL}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters in {cfg.dtype}, made from seed 0 in "
+          f"{time.perf_counter() - t1:.3f} s")
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in SERVE_REQS]
+
+    def serve(mode, batch):
+        eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
+                          decode_mode=mode)
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in batch]
+        results, finished = {}, []
+        t = time.perf_counter()
+        while eng.has_work:
+            finished += eng.step(results)
+        wall = time.perf_counter() - t
+        by_rid = {r.rid: r for r in finished}
+        return ([results[r] for r in rids], [by_rid[r] for r in rids],
+                dict(eng.stats), wall)
+
+    for fn in counters.values():
+        fn.launches = 0
+    tokens, done_reqs, stats, wall = serve("chunked", reqs)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    print(f"   chunked: stats {stats}, {wall:.3f} s; launches on the serving "
+          f"path: {counts}")
+    longer = sum(len(p) > 1 for p, _ in reqs)
+    want = longer * cfg.num_layers
+    if counts["K6"] != want or counts["K6"] == 0:
+        raise AssertionError(f"K6 launched {counts['K6']} times on the "
+                             f"serving path, expected {want} (one a layer "
+                             f"for each prefill of more than one token)")
+    print(f"   K6 launches {counts['K6']} = {cfg.num_layers} layers x "
+          f"{longer} prefills of more than one token ({stats['prefills']} "
+          f"prefills; a one-token prompt is a decode step from a zero state, "
+          f"as in the reference)")
+    if stats["prefills"] != len(reqs) or stats["tokens_generated"] != sum(
+            m for _, m in reqs):
+        raise AssertionError(f"unexpected stats {stats}")
+    for (p, m), out in zip(reqs, tokens):
+        if len(out) != m or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"prompt of {len(p)}: bad output {out}")
+    host_tokens, _, host_stats, host_wall = serve("host", reqs)
+    print(f"   host: stats {host_stats}, {host_wall:.3f} s")
+    if host_tokens != tokens:
+        raise AssertionError("chunked and host decode gave other tokens")
+    print("   chunked and host decode give the same tokens")
+    k = [len(p) for p, _ in reqs].index(1000)
+    alone, alone_reqs, _, _ = serve("chunked", [reqs[k]])
+    if alone[0] != tokens[k]:
+        raise AssertionError("the 1000-token request served alone gave "
+                             "other tokens than in the batch")
+    r = alone_reqs[0]
+    print(f"   the 1000-token request alone gives the batch's tokens; time to"
+          f" first token alone {(r.t_first - r.t_submit) * 1e3:.3f} ms, in "
+          f"the batch {(done_reqs[k].t_first - done_reqs[k].t_submit) * 1e3:.3f}"
+          f" ms from submission")
+
+    # decode rate with every slot live: 4 requests admitted in one tick,
+    # then whole chunks timed on the host clock (each ends in a host sync)
+    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK)
+    for _ in range(SERVE_SLOTS):
+        eng.submit(rng.randint(0, cfg.vocab_size, 128).astype(np.int32),
+                   max_new_tokens=1 + 6 * SERVE_CHUNK)
+    eng.step()
+    before = dict(eng.stats)
+    t = time.perf_counter()
+    while eng.has_work:
+        eng.step()
+    wall = time.perf_counter() - t
+    toks = eng.stats["tokens_generated"] - before["tokens_generated"]
+    steps = eng.stats["decode_steps"] - before["decode_steps"]
+    print(f"   decode at {SERVE_SLOTS} live slots: {toks} tokens in "
+          f"{steps} steps, {wall:.6f} s, {toks / wall:.3f} tokens/s "
+          f"({wall / steps * 1e3:.3f} ms a step)")
+
+    # one decode step at 4 slots and the 1000-token prefill under the
+    # profiler: launches, kernel time (K6's share), wall, idle share
+    prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
+    for what, tok, caches in (
+            (f"one decode step at {SERVE_SLOTS} slots", eng.cur, eng.caches),
+            ("the 1000-token prefill", prompt,
+             init_caches(cfg, 1, SERVE_MAX_LEN, device=dev))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            lm.forward(params, cfg, tok, caches=caches, last_token_only=True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        kern = device_kernels(prof)
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        k6 = [e for e in kern if "ssd_chunked" in e.name]
+        k6_ms = sum(e.time_range.elapsed_us() for e in k6) / 1e3
+        print(f"   {what}, profiled: {len(kern)} CUDA kernels "
+              f"({len(kern) / cfg.num_layers:.1f} a layer), {busy:.3f} ms of "
+              f"kernel time ({len(k6)} K6 recorded, {k6_ms:.3f} ms) in "
+              f"{wall:.3f} ms of wall (idle share {1 - busy / wall:.3f})")
+
+    # the prefill logits of the 1000-token prompt, K6 against plain SSD, in
+    # the served bf16 forward and in a float32 forward of the same weights
+
+    def logits_pair(c, p):
+        lg_k, _ = lm.forward(p, c, prompt, last_token_only=True)
+        lg_p, _ = lm.forward(p, dataclasses.replace(c, kernel_impl="plain"),
+                             prompt, last_token_only=True)
+        lg_k, lg_p = lg_k.float(), lg_p.float()
+        rel = ((lg_k - lg_p).norm() / lg_p.norm()).item()
+        print(f"   1000-token prefill logits, {c.dtype}: K6 against plain "
+              f"SSD relative L2 {rel:.3e}, max abs diff "
+              f"{(lg_k - lg_p).abs().max().item():.6f}, max |logit| "
+              f"{lg_p.abs().max().item():.4f}; argmax "
+              f"{int(lg_k[0, -1].argmax())} / {int(lg_p[0, -1].argmax())}")
+        if lg_k.shape != (1, 1, cfg.vocab_size) or not bool(
+                lg_k.isfinite().all()):
+            raise AssertionError(f"prefill logits with K6: shape "
+                                 f"{tuple(lg_k.shape)} or not finite")
+        return lg_k, rel
+
+    lg_k, rel = logits_pair(cfg, params)
+    if rel > LOGITS_BF16_RTOL:
+        raise AssertionError(f"bf16 prefill logits with K6 are {rel} (relative"
+                             f" L2) from plain SSD's, above {LOGITS_BF16_RTOL}")
+    if int(lg_k[0, -1].argmax()) != tokens[k][0]:
+        raise AssertionError("the served first token is not the argmax of "
+                             "the prefill logits")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = to_float32(params)
+    _, rel = logits_pair(c32, p32)
+    del p32
+    if rel > LOGITS_F32_RTOL:
+        raise AssertionError(f"float32 prefill logits with K6 are {rel} "
+                             f"(relative L2) from plain SSD's, above "
+                             f"{LOGITS_F32_RTOL}")
+    print(f"   peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB ({card})")
+    done(t0)
+    return counts["K6"]
 
 
 if __name__ == "__main__":

@@ -12,12 +12,18 @@ Backends run on ``cuda`` unless the spec asks for the CPU
 they raise.  The task kernels are hand-written CUDA for ``sm_90a``
 (``kernels/csrc``), built with ``nvcc`` at first use.
 
-The numerics contract has no TF32 anywhere: both switches are set off
-here, whatever the process default.
+Since slice 3 the port also serves Mamba-2 (``configs``, ``models``,
+``serve``): ``serve.ServeEngine`` over ``models.model.init_model(cfg)``, the
+SSD of every prefill on K6 (``kernels/csrc/ssd.cu``).
+
+The numerics contract has no TF32 anywhere and accumulates bf16 matmuls in
+float32 throughout: the switches are set here, whatever the process
+default.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"

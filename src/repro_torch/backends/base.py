@@ -129,7 +129,7 @@ def resolve_device(device: Optional[str]) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; ask for the CPU explicitly "
-                "(e.g. 'torch-scan[device=cpu]')")
+                "(e.g. 'torch-scan[device=cpu]', or device='cpu')")
         return torch.device("cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

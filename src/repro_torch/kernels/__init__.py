@@ -3,6 +3,8 @@
 - bodies: plain step functions, the masked loop and ``run_kernel_columns``
 - compute: K1, the compute kernel (``csrc/compute.cu``)
 - memory: K2, the memory kernel (``csrc/memory.cu``)
+- ssd: K6, the Mamba-2 SSD chunked forward (``csrc/ssd.cu``)
+- ops / ref: the SSD dispatch (``ssd``, ``ssd_decode_step``) and its oracles
 - _build: the nvcc build of ``csrc/`` and the ctypes loader
 
 K3, the fused megakernel (``csrc/fused.cu``), and K4, its one-sided
@@ -12,9 +14,12 @@ multi-rank form (``csrc/onesided.cu``), are wrapped in
 from . import bodies
 from .compute import taskbench_compute, taskbench_compute_plain
 from .memory import taskbench_memory, taskbench_memory_plain
+from .ssd import ssd_chunked, ssd_chunked_plain
 
 __all__ = [
     "bodies",
+    "ssd_chunked",
+    "ssd_chunked_plain",
     "taskbench_compute",
     "taskbench_compute_plain",
     "taskbench_memory",

@@ -45,6 +45,9 @@ SIGNATURES = {
                                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P], _I),
     "taskbench_onesided_blocks": ([_I], _I),
+    "ssd_chunked_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P], _I),
+    "ssd_chunked_smem_bytes": ([_I, _I, _I], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

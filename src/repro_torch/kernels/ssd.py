@@ -1,0 +1,144 @@
+"""K6, the Mamba-2 SSD chunked forward: wrapper, plain version, launch count.
+
+Counterpart of ``repro.kernels.ssd.ssd_chunked`` (the Pallas TPU kernel
+``_ssd_kernel``).  The CUDA kernel is ``csrc/ssd.cu``; its header says what
+bounds it on the H100 and how its design answers that.
+
+Shapes as in the reference: x (B, S, H, P), dt (B, S, H), A (H,), B and C
+(B, S, G, N), D (H,) or None; S a multiple of ``chunk = min(chunk, S)``,
+``chunk`` at most 128, and on the card P and N multiples of 4.  Returns
+y (B, S, H, P) in x's type and the final state (B, H, P, N) in float32,
+from a zero initial state.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+MAX_CHUNK = 128
+SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _with_skip(y: torch.Tensor, x: torch.Tensor,
+               D: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's edge: y is rounded to x's type, then D x is added in
+    float32 and the sum rounded again."""
+    if D is None:
+        return y
+    return (y.float() + x.float() * D.float()[None, None, :, None]).to(x.dtype)
+
+
+def ssd_chunked_plain(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
+                      chunk: int = MAX_CHUNK
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: K6's chunk loop in float32, each chunk's
+    products taken in the Pallas kernel's order."""
+    chunk = _check(x, dt, A, Bm, Cm, D, chunk)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Af = A.float()
+    h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    idx = torch.arange(chunk, device=x.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]  # (1, Qi, Qj, 1)
+    zero = torch.zeros((), device=x.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        xc = x[:, sl].float()                                   # (B, Q, H, P)
+        dtc = dt[:, sl].float()                                 # (B, Q, H)
+        bc = torch.repeat_interleave(Bm[:, sl].float(), rep, dim=2)
+        cc = torch.repeat_interleave(Cm[:, sl].float(), rep, dim=2)
+        cum = torch.cumsum(dtc * Af, dim=1)                     # (B, Q, H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]           # (B, Qi, Qj, H)
+        decay = torch.where(tri, torch.exp(seg), zero)
+        cb = torch.einsum("bihn,bjhn->bijh", cc, bc)
+        yc = torch.einsum("bijh,bjhp->bihp", cb * decay, xc * dtc[..., None])
+        c_in = cc * torch.exp(cum)[..., None]
+        yc = yc + torch.einsum("bihn,bhpn->bihp", c_in, h)
+        tail = torch.exp(cum[:, -1:] - cum) * dtc               # (B, Q, H)
+        b_in = bc * tail[..., None]
+        h = torch.exp(cum[:, -1])[..., None, None] * h \
+            + torch.einsum("bjhp,bjhn->bhpn", xc, b_in)
+        y[:, sl] = yc.to(x.dtype)
+    return _with_skip(y, x, D), h
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
+    """Validate shapes, types and devices; return the chunk length used."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
+    Bsz, S, H, P = x.shape
+    if Bm.ndim != 4 or Bm.shape[:2] != (Bsz, S) or Cm.shape != Bm.shape:
+        raise ValueError(f"B and C must be (B, S, G, N) with B, S of x "
+                         f"{tuple(x.shape)}, got {tuple(Bm.shape)} and "
+                         f"{tuple(Cm.shape)}")
+    G = Bm.shape[2]
+    if G == 0 or H % G:
+        raise ValueError(f"heads {H} are not a multiple of groups {G}")
+    if tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"dt must be {(Bsz, S, H)} and A {(H,)}, got "
+                         f"{tuple(dt.shape)} and {tuple(A.shape)}")
+    if D is not None and tuple(D.shape) != (H,):
+        raise ValueError(f"D must be {(H,)}, got {tuple(D.shape)}")
+    if x.dtype not in _TYPES or Bm.dtype not in _TYPES or Cm.dtype != Bm.dtype:
+        raise ValueError(f"x, B and C must be float32 or bfloat16 (B and C "
+                         f"alike), got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype} and "
+                         f"{A.dtype}")
+    devices = {t.device for t in (x, dt, A, Bm, Cm) + (() if D is None else (D,))}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    if S == 0:
+        raise ValueError("empty sequence (S = 0)")
+    chunk = min(int(chunk), S)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
+    if S % chunk:
+        raise ValueError(f"S = {S} is not a multiple of chunk {chunk}; "
+                         f"ops.ssd pads it")
+    return chunk
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
+                chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of the SSD chunked forward from a zero state.
+
+    CPU tensors run the plain version; CUDA tensors launch K6 on the current
+    stream (counted in ``ssd_chunked.launches``), then add D outside it.
+    """
+    chunk = _check(x, dt, A, Bm, Cm, D, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD kernel for device {x.device}")
+    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
+        raise ValueError("x, dt, A, B and C must be contiguous")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if P % 4 or N % 4:
+        raise ValueError(f"K6 takes P and N in multiples of 4, got P={P}, "
+                         f"N={N}")
+    lib = _build.library()
+    smem = lib.ssd_chunked_smem_bytes(P, N, chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"P={P}, N={N}, chunk={chunk} needs {smem} bytes of "
+                         f"shared memory a block, above {SMEM_LIMIT}")
+    y = torch.empty_like(x)
+    state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    err = lib.ssd_chunked_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N,
+        chunk, int(x.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_chunked")
+    ssd_chunked.launches += 1
+    return _with_skip(y, x, D), state
+
+
+ssd_chunked.launches = 0

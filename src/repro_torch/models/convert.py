@@ -1,0 +1,50 @@
+"""Weights carried across from the reference package's parameter tree.
+
+``params_from_jax`` takes the JAX package's parameters as numpy arrays
+(``split_leaves(init_model(...))[0]`` mapped through ``np.asarray``: nested
+dicts, ``blocks_scanned`` stacked on a leading layer dim) and returns the
+port's parameters, so that both packages compute
+the same function in the tests.  It imports no JAX: it walks the numpy
+tree by key, against the keys and shapes ``model.init_model`` makes.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..backends.base import resolve_device
+from .model import check_supported, init_model
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy (arrays from JAX are read-only)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' numpy bfloat16
+        bits = a.view(np.uint16).astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _carry(src, like, path: str, device: torch.device):
+    if isinstance(like, dict):
+        if not isinstance(src, dict) or set(src) != set(like):
+            got = sorted(src) if isinstance(src, dict) else type(src).__name__
+            raise ValueError(f"{path or 'params'}: keys {got}, the port "
+                             f"expects {sorted(like)}")
+        return {k: _carry(src[k], like[k], f"{path}/{k}", device)
+                for k in like}
+    t = _tensor(src, device)
+    if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+        raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, the port "
+                         f"expects {like.dtype} {tuple(like.shape)}")
+    return t
+
+
+def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
+    """The port's parameters for ``cfg`` from the reference's numpy tree,
+    on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    like = init_model(cfg, 0, device="meta")
+    return _carry(tree, like, "", device)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 on the card, against their plain versions.
+"""The CUDA kernels K1-K4 and K6 on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
 one.  The file imports neither JAX nor the reference package, so it runs
@@ -22,6 +22,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (taskbench_compute,  # noqa: E402
                                  taskbench_compute_plain, taskbench_memory,
                                  taskbench_memory_plain)
+from repro_torch.kernels import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
+                                     ssd_chunked_plain)
 
 COMPUTE_CASES = [(8, 12), (16, 40), (32, 7)]      # tests/test_kernels.py
 MEMORY_CASES = [(1024, 128, 7), (2048, 256, 0), (512, 512, 9)]
@@ -149,3 +152,106 @@ def test_k4_oversubscribed_ranks_raise(cuda):
     g = make_graph(width=limit + 1, height=2, iterations=1)
     with pytest.raises(RuntimeError, match="co-resident"):
         get_backend(f"cuda-fused[comm=onesided,ranks={limit + 1}]").run([g])
+
+
+# B, S, H, P, G, N, chunk: tests/test_kernels.py's SSD cases, chunk 1 and 37,
+# and the full-width Mamba-2 2.7B prefill at a shorter S
+SSD_CASES = [(2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
+             (2, 64, 2, 64, 2, 32, 64), (1, 9, 2, 8, 1, 4, 1),
+             (2, 74, 4, 16, 2, 8, 37), (1, 256, 80, 64, 1, 128, 128)]
+SSD_TOL = 1e-4  # float32 sums taken in another order than the plain version
+
+
+def ssd_inputs(B, S, H, P, G, N, device, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5)
+    Bm = torch.randn(B, S, G, N, generator=g) * 0.5
+    Cm = torch.randn(B, S, G, N, generator=g) * 0.5
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            Bm.to(device, dtype), Cm.to(device, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_k6_on_card_matches_plain(cuda, case):
+    *shape, chunk = case
+    args = ssd_inputs(*shape, cuda)
+    D = torch.randn(shape[2]).to(cuda)
+    n = ssd_chunked.launches
+    y, h = ssd_chunked(*args, D, chunk=chunk)
+    assert ssd_chunked.launches == n + 1
+    y_p, h_p = ssd_chunked_plain(*args, D, chunk=chunk)
+    torch.testing.assert_close(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2 ** -126)))
+                      - 7)
+
+
+@pytest.mark.gpu
+def test_k6_bf16_is_within_one_ulp_of_plain(cuda):
+    """bf16 y: the float32 tolerance, then at most one bf16 ulp for the
+    rounding of the two float32 sums (near zero the float32 error of a sum
+    of large terms exceeds a bf16 ulp of the small result)."""
+    args = ssd_inputs(1, 256, 80, 64, 1, 128, cuda, dtype=torch.bfloat16)
+    y, h = ssd_chunked(*args, chunk=128)
+    y_p, h_p = ssd_chunked_plain(*args, chunk=128)
+    assert y.dtype == torch.bfloat16
+    ref = y_p.float()
+    allowed = bf16_ulp(ref) + SSD_TOL * (1 + ref.abs())
+    assert bool(((y.float() - ref).abs() <= allowed).all())
+    torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_k6_ragged_prompt_through_ops(cuda):
+    args = ssd_inputs(1, 100, 4, 16, 2, 8, cuda)
+    y, h = ssd_ops.ssd(*args, chunk=32)
+    y_p, h_p = ssd_ops.ssd(*args, chunk=32, impl="plain")
+    torch.testing.assert_close(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_k6_enforces_chunk_at_most_128(cuda):
+    args = ssd_inputs(1, 256, 2, 8, 1, 4, cuda)
+    n = ssd_chunked.launches
+    with pytest.raises(ValueError, match="chunk must be in 1..128"):
+        ssd_chunked(*args, chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunked(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                    *args[1:], chunk=64)
+    odd = ssd_inputs(1, 64, 2, 6, 1, 4, cuda)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_chunked(*odd, chunk=64)
+    assert ssd_chunked.launches == n
+
+
+@pytest.mark.gpu
+def test_reduced_mamba_serves_on_card_through_k6(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced(get_config("mamba2-2.7b"))
+    params = init_model(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    reqs = [([1, 2, 3], 7), ([4, 5], 3), ([6], 5), (list(range(1, 38)), 5)]
+    outs = {}
+    for mode in ("chunked", "host"):
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=64,
+                          chunk_size=4, decode_mode=mode)
+        n = ssd_chunked.launches
+        rids = [eng.submit(np.array(p), max_new_tokens=m) for p, m in reqs]
+        out = eng.run()
+        outs[mode] = [out[r] for r in rids]
+        # a one-token prompt is a decode step from a zero state (as in the
+        # reference), every longer prompt one K6 launch a layer
+        longer = sum(len(p) > 1 for p, _ in reqs)
+        assert ssd_chunked.launches - n == longer * cfg.num_layers
+        assert eng.stats["prefills"] == len(reqs)
+    assert outs["chunked"] == outs["host"]
+    assert [len(o) for o in outs["chunked"]] == [m for _, m in reqs]
