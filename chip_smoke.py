@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the five hand-written CUDA kernels from ``src/repro_torch/kernels/
+Builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
 raise on failure:
 
@@ -18,7 +18,11 @@ raise on failure:
    ranks, puts to every rank); K6 (SSD) at the shapes of
    ``tests/test_kernels.py``, chunk 1 and 37, a ragged S=100 through
    ``ops.ssd`` and the full-width Mamba-2 2.7B prefill shape in float32 and
-   in the model's types, within the tolerance ``PERF.md`` states;
+   in the model's types, within the tolerance ``PERF.md`` states; K5
+   (flash attention) in float32 and bf16 at ``tests/test_kernels.py``'s
+   attention cases, at ragged lengths 37, 100 and 300, with fully masked
+   rows (a causal q_offset < 0) and at the full-width RecurrentGemma-2B
+   prefill (Hq 10, Hkv 1, D 256, window 2048, S 1000 and 3000);
 4. the structural pin, over ``PIN_RUNS`` runs: the launch counter reads
    exactly one K3 launch a ``cuda-fused`` run, for 1 graph and for 3
    stacked graphs, and one K4 launch a graph of a
@@ -44,11 +48,20 @@ raise on failure:
    logits with K6 agree with the same forward on ``ssd_chunked_plain``
    (in float32 within 1e-4; in bf16 only a guard, see LOGITS_BF16_RTOL);
    time to first token, the decode rate at 4 live slots and the profiles
-   of one decode step and of the 1000-token prefill are printed.
+   of one decode step and of the 1000-token prefill are printed;
+8. the same for ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU
+   and 8 local-attention, bf16, random weights from seed 0) with
+   ``max_len=4096``, so every local-attention layer has a ring cache and
+   its prefill runs K5: prompts of 1, 2, 37, 300, 1000 and 3000 tokens, K5
+   once a local-attention layer for every prefill of more than one token,
+   the 3000-token prefill logits with K5 against the same forward on the
+   plain version, and the time to first token of the 1000- and 3000-token
+   prompts alone.
 
 The line before the last lists the kernels with their launches on the main
-path, errors, times and bounds; the last line is the device record.  Exits
-non-zero, printing no result, when no CUDA device is present.
+path, errors, times, bounds and (K5) the time of one library call for the
+same function; the last line is the device record.  Exits non-zero,
+printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -85,6 +98,8 @@ from repro_torch.kernels import (_build, bodies,  # noqa: E402
                                  taskbench_compute, taskbench_compute_plain,
                                  taskbench_memory, taskbench_memory_plain)
 from repro_torch.kernels import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
                                      ssd_chunked_plain)
 from repro_torch.models import model as lm  # noqa: E402
@@ -106,15 +121,51 @@ SSD_CASES = ((2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
              (2, 74, 4, 16, 2, 8, 37))
 SSD_FULL = (1, 1024, 80, 64, 1, 128, 128)
 SSD_TOL = 1e-4  # float32: the same products summed in another order
-# relative L2 of the 1000-token prefill logits, K6 against plain SSD: tight
-# in a float32 forward; in the bf16 forward a guard against gross error
-# only, since any float32-level change of y moves bf16 logits by ~5e-2
+# relative L2 of a served prefill's logits, the path's kernel (K6, K5)
+# against its plain version: tight in a float32 forward; in the bf16
+# forward a guard against gross error only, since any float32-level change
+# of a block's output moves bf16 logits by ~5e-2
 # (tests/test_torch_ssm.py::test_bf16_rounding_cascade_dwarfs_f32_drift)
 LOGITS_F32_RTOL, LOGITS_BF16_RTOL = 1e-4, 0.25
-MODEL = "mamba2-2.7b"
-# (prompt tokens, new tokens) of the served requests
-SERVE_REQS = ((1, 8), (37, 16), (128, 24), (300, 32), (1000, 12), (1500, 20))
-SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_LEN = 4, 8, 2048
+SERVE_SLOTS, SERVE_CHUNK = 4, 8
+# K5: tests/test_kernels.py's ATTN_CASES, ragged lengths, fully masked rows
+# (a causal q_offset < 0), then the full-width RecurrentGemma-2B prefill
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset)
+ATTN_CASES = ((2, 128, 128, 4, 2, 64, True, None, 0),
+              (1, 128, 256, 8, 8, 32, True, 64, 128),
+              (2, 64, 64, 4, 1, 64, False, None, 0),
+              (1, 256, 256, 2, 2, 128, True, 128, 0),
+              (2, 128, 128, 6, 3, 64, True, None, 0),
+              (2, 37, 37, 4, 2, 32, True, 16, 0),
+              (1, 100, 100, 6, 2, 64, False, None, 0),
+              (1, 300, 300, 10, 1, 256, True, 128, 0),
+              (1, 100, 100, 4, 2, 64, True, None, -60))
+ATTN_FULL = tuple((1, S, S, 10, 1, 256, True, 2048, 0) for S in (1000, 3000))
+# float32: |o - o_plain| <= ATTN_TOL (1 + |o_plain|), the reference's own
+# kernel-test tolerance; a bf16 output one bf16 ulp of o_plain more
+ATTN_TOL = 2e-5
+BF16_FLOP_PER_SM_CLOCK = 4096  # dense tensor cores: 989.4 TFLOP/s, 1830 MHz
+
+
+class ServeCase(NamedTuple):
+    """One serving phase: a model served at full width from seed 0."""
+    model: str
+    reqs: tuple  # (prompt tokens, new tokens) of the served requests
+    max_len: int
+    kernel: str  # the kernel the prefill runs ("K6", "K5")
+    kind: str  # the block kind that launches it, once a prefill
+    name: str  # a substring of its CUDA kernel's name
+    ttft: tuple  # prompt lengths whose time to first token is taken alone
+    logits_len: int  # the prompt whose prefill logits are checked
+
+
+MAMBA = ServeCase("mamba2-2.7b", ((1, 8), (37, 16), (128, 24), (300, 32),
+                                  (1000, 12), (1500, 20)), 2048, "K6", "ssd",
+                  "ssd_chunked", (1000,), 1000)
+GEMMA = ServeCase("recurrentgemma-2b", ((1, 8), (2, 12), (37, 16),
+                                        (300, 24), (1000, 12), (3000, 32)),
+                  4096, "K5", "local_attn", "flash_attention", (1000, 3000),
+                  3000)
 
 
 def phase(title: str):
@@ -208,6 +259,11 @@ def ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
             Cm.to(dev, dtype))
 
 
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2 ** -126)))
+                      - 7)
+
+
 def ssd_agree(name: str, got, want) -> float:
     """K6 against its plain version: y and state within SSD_TOL (float32),
     a bf16 y within SSD_TOL plus one bf16 ulp; returns the max abs error."""
@@ -217,8 +273,7 @@ def ssd_agree(name: str, got, want) -> float:
         diff = (a - b).abs()
         allowed = SSD_TOL * (1 + b.abs())
         if got[0].dtype == torch.bfloat16 and what == "y":
-            allowed = allowed + torch.exp2(torch.floor(torch.log2(
-                b.abs().clamp_min(2 ** -126))) - 7)
+            allowed = allowed + bf16_ulp(b)
         err, rel = diff.max().item(), (diff / b.abs().clamp_min(1e-6)).max()
         print(f"   K6 {name} {what}: max abs err {err:.3e}, max rel err "
               f"{rel.item():.3e} (max |plain| {b.abs().max().item():.3f})")
@@ -239,6 +294,59 @@ def ssd_bound(B, S, H, P, N, chunk, in_bytes):
     nbytes = (2 * B * S * H * P * in_bytes + 2 * B * S * N * in_bytes
               + B * S * H * 4 + H * 4 + B * H * P * N * 4)
     return flops, nbytes
+
+
+def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dev, dtype=torch.float32, seed=0):
+    """Random q, k, v (as tests/test_torch_gpu.py makes them)."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+
+
+def attn_agree(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """K5 against its plain version within ATTN_TOL (float32), a bf16
+    output within ATTN_TOL plus one bf16 ulp; returns the max abs error."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    allowed = ATTN_TOL * (1 + b.abs())
+    if got.dtype == torch.bfloat16:
+        allowed = allowed + bf16_ulp(b)
+    err = diff.max().item()
+    print(f"   K5 {name}: max abs err {err:.3e} (max |plain| "
+          f"{b.abs().max().item():.3f})")
+    if got.dtype != want.dtype or not bool(a.isfinite().all()) or not bool(
+            (diff <= allowed).all()):
+        raise AssertionError(f"K5 {name}: differs from its plain version "
+                             f"beyond the tolerance")
+    return err
+
+
+def attn_cost(B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, in_bytes):
+    """(operations, bytes) of the attention function: 4 D flops a head for
+    every allowed (query, key) pair (the score and its share of P V), q, k
+    and v read and o written once."""
+    qpos = q_offset + np.arange(Sq)
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    flops = 4 * D * Hq * B * pairs
+    nbytes = in_bytes * B * (2 * Sq * Hq * D + 2 * Skv * Hkv * D)
+    return flops, nbytes
+
+
+def k5_tiles(Sq, Skv, causal, window, q_offset, block=64) -> int:
+    """The 64 x 64 (query, key) tiles K5 visits a head: for each block of
+    query rows, the key tiles from the window's start to the causal end
+    (the Pallas kernel's grid visits all of them)."""
+    tiles = 0
+    for q0 in range(0, Sq, block):
+        q_first, q_last = q_offset + q0, q_offset + min(q0 + block, Sq) - 1
+        hi = min(Skv, q_last + 1) if causal else Skv
+        lo = max(0, q_first - window + 1) if window is not None else 0
+        if hi > lo:
+            tiles += -(-(hi - (lo // block) * block) // block)
+    return tiles
 
 
 def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -305,9 +413,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     sms = props.multi_processor_count
     max_mhz = float(smi("clocks.max.sm").split()[0])
     peak_flops = sms * FP32_LANES_PER_SM * 2 * max_mhz * 1e6
+    peak_bf16 = sms * BF16_FLOP_PER_SM_CLOCK * max_mhz * 1e6
     print(f"   SMs {sms}, max SM clock {max_mhz:.0f} MHz, fp32 peak "
           f"{peak_flops / 1e12:.3f} TFLOP/s (SMs x 128 lanes x 2 x clock), "
-          f"HBM {HBM_BYTES_PER_S / 1e12} TB/s (data sheet)")
+          f"bf16 tensor-core peak {peak_bf16 / 1e12:.3f} TFLOP/s (SMs x "
+          f"{BF16_FLOP_PER_SM_CLOCK} x clock), HBM {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s (data sheet)")
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     done(t0)
@@ -324,11 +435,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
           f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks; K4 holds at most "
           f"{lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
           f"uses {lib.ssd_chunked_smem_bytes(64, 128, 128)} bytes of shared "
-          f"memory a CTA at P=64, N=128, chunk 128")
+          f"memory a CTA at P=64, N=128, chunk 128; K5 uses "
+          f"{lib.flash_attention_smem_bytes(256)} at D=256")
     done(t0)
 
-    def bound(flops: float, nbytes: float):
-        t_ops, t_bytes = flops / peak_flops, nbytes / HBM_BYTES_PER_S
+    def bound(flops: float, nbytes: float, peak: float = peak_flops):
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         return ((t_ops, "operations") if t_ops >= t_bytes
                 else (t_bytes, "bytes"))
 
@@ -455,9 +567,23 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         f"{tuple(shape)} chunk {chunk} bf16 x/B/C", ssd_chunked(*args,
                                                                chunk=chunk),
         ssd_chunked_plain(*args, chunk=chunk)))
+    errs["K5"] = 0.0
+    for case in ATTN_CASES + ATTN_FULL:
+        *shape, causal, window, q_offset = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(*shape, dev, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            o = flash_attention(q, k, v, **kw)
+            errs["K5"] = max(errs["K5"], attn_agree(
+                f"{tuple(shape)} causal={causal} window={window} q_offset="
+                f"{q_offset} {str(dtype)[6:]}", o,
+                flash_attention_plain(q, k, v, **kw)))
+            if q_offset < 0 and o[:, :-q_offset].any():
+                raise AssertionError("K5: fully masked rows are not 0")
     print(f"   launches so far: K1 {taskbench_compute.launches}, "
           f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}, "
-          f"K4 {taskbench_onesided.launches}, K6 {ssd_chunked.launches}")
+          f"K4 {taskbench_onesided.launches}, K5 "
+          f"{flash_attention.launches}, K6 {ssd_chunked.launches}")
     done(t0)
 
     # -- 4. the structural pin -----------------------------------------
@@ -500,7 +626,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     scan = get_backend("torch-scan")
     counters = {"K1": taskbench_compute, "K2": taskbench_memory,
                 "K3": taskbench_fused, "K4": taskbench_onesided,
-                "K6": ssd_chunked}
+                "K5": flash_attention, "K6": ssd_chunked}
     cases = (("stencil", "stencil", [stencil]),
              ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
              ("memory 1 MiB", "memory", [memory]))
@@ -549,7 +675,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                  timed(lambda: taskbench_compute_plain(tiles, its,
                                                        MAIN_ITERS), 20),
                  bound(WIDTH * 1024 * 2 * MAIN_ITERS,
-                       WIDTH * (1024 * 8 + 4))))
+                       WIDTH * (1024 * 8 + 4)), None))
     xs = (1.0 + torch.zeros(WIDTH, size, device=dev))
     itm = torch.full((WIDTH,), MEM_ITERS, dtype=torch.int32, device=dev)
     nwin = size // span
@@ -558,14 +684,16 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     rows.append(("K2", timed(lambda: taskbench_memory(xs, itm, span), 50,
                              one_kernel=True),
                  timed(lambda: taskbench_memory_plain(xs, itm, span), 5),
-                 bound(WIDTH * reps * span * 2, WIDTH * (size * 8 + 4))))
+                 bound(WIDTH * reps * span * 2, WIDTH * (size * 8 + 4)),
+                 None))
     tabs, kw, _, _ = fused_pair([stencil])
     table_bytes = sum(t.numel() * 4 for t in tabs[:4])
     rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10,
                              one_kernel=True),
                  timed(lambda: taskbench_fused_plain(*tabs, **kw), 2),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
-                       table_bytes + WIDTH * stencil.payload_elems * 4)))
+                       table_bytes + WIDTH * stencil.payload_elems * 4),
+                 None))
     plan, otabs, okw, _, _ = onesided_pair(stencil, WIDTH)
     n_off = len(plan._onesided_offsets)
     # tables once, the output once, and every put row written and read once
@@ -576,17 +704,21 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                  timed(lambda: taskbench_onesided_plain(*otabs, **okw), 2),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
-                       + WIDTH * stencil.payload_elems * 4)))
+                       + WIDTH * stencil.payload_elems * 4), None))
+    rows.append(("K5",) + attention_times(dev, bound, peak_bf16,
+                                          peak_flops))
     *shape, chunk = SSD_FULL
     sargs = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
     B_, S_, H_, P_, _, N_ = shape
     rows.append(("K6", timed(lambda: ssd_chunked(*sargs, chunk=chunk), 20,
                              one_kernel=True),
                  timed(lambda: ssd_chunked_plain(*sargs, chunk=chunk), 3),
-                 bound(*ssd_bound(B_, S_, H_, P_, N_, chunk, 2))))
-    for name, t, plain, (bs, by) in rows:
+                 bound(*ssd_bound(B_, S_, H_, P_, N_, chunk, 2)), None))
+    for name, t, plain, (bs, by), library in rows:
+        lib_text = ("" if library is None else
+                    f"; library call {library.describe()}")
         print(f"   {name}: {t.describe()}; plain version {plain.describe()}; "
-              f"bound {bs * 1e3:.6f} ms ({by})")
+              f"bound {bs * 1e3:.6f} ms ({by}){lib_text}")
     (k3_ms, k3_s), (k4_ms, k4_s) = rows[2][1][:2], rows[3][1][:2]
     print(f"   same graph (stencil, W={WIDTH}, H={HEIGHT}): K3 {k3_ms:.6f} ms "
           f"device ({k3_ms / HEIGHT * 1e3:.4f} us a timestep, grid barrier), "
@@ -640,7 +772,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   ({card})")
     done(t0)
 
-    launches["K6"] = serve_phase(dev, card, counters)
+    launches["K6"] = serve_phase(MAMBA, "7", dev, card, counters)
+    launches["K5"] = serve_phase(GEMMA, "8", dev, card, counters)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -652,50 +785,117 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         "K4": ("taskbench_onesided",
                "src/repro_torch/kernels/csrc/onesided.cu",
                "src/repro/backends/megakernel.py:142"),
+        "K5": ("flash_attention",
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:29"),
         "K6": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu",
                "src/repro/kernels/ssd.py:25"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
-             "bound_ms": bs * 1e3, "bound_by": by, "library_ms": None}
-            for k, (ms, *_), (pms, *_), (bs, by) in rows]
+             "bound_ms": bs * 1e3, "bound_by": by,
+             "library_ms": None if lib is None else lib.device}
+            for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
+
+
+def attention_times(dev, bound, peak_bf16: float, peak_fp32: float):
+    """K5 at the full-width RecurrentGemma-2B prefill shapes (bf16): its
+    device time, its plain version's, one scaled_dot_product_attention call
+    computing the same function (the yardstick; the port never calls it)
+    and the bounds.  Returns the S = 3000 row (timing, plain, bound,
+    library)."""
+    for case in ATTN_FULL:
+        *shape, causal, window, q_offset = case
+        S = shape[1]
+        q, k, v = attn_inputs(*shape, dev, torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if S > window:  # the window cuts into the causal triangle
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        plain = flash_attention_plain(q, k, v, **kw).float()
+        lib_err = (sdpa().transpose(1, 2).float() - plain).abs().max().item()
+        t = timed(lambda: flash_attention(q, k, v, **kw), 20,
+                  one_kernel=True)
+        pt = timed(lambda: flash_attention_plain(q, k, v, **kw), 3)
+        lt = timed(sdpa, 20)
+        flops, nbytes = attn_cost(*shape, causal, window, q_offset, 2)
+        how = "is_causal" if mask is None else "window mask"
+        b16, by = bound(flops, nbytes, peak_bf16)
+        b32, _ = bound(flops, nbytes)
+        B, Sq, Skv, Hq, _, D = shape
+        tiles = k5_tiles(Sq, Skv, causal, window, q_offset)
+        # each visited tile: two 64 x 64 x D products of FMAs
+        t_fma = B * Hq * tiles * 4 * 64 * 64 * D / peak_fp32
+        print(f"   K5 at S={S} (B=1, Hq=10, Hkv=1, D=256, window {window}, "
+              f"bf16): {t.describe()}; plain version {pt.describe()}; "
+              f"scaled_dot_product_attention ({how}, enable_gqa; max abs "
+              f"diff from plain {lib_err:.3e}) "
+              f"{lt.describe()}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} "
+              f"MB: bound {b16 * 1e3:.6f} ms ({by}, bf16 tensor-core peak), "
+              f"{b32 * 1e3:.6f} ms at the fp32 peak; K5 is "
+              f"{t.device / (b16 * 1e3):.1f}x its bound and "
+              f"{t.device / lt.device:.2f}x the library call; K5 visits "
+              f"{tiles} of {-(-Sq // 64) * -(-Skv // 64)} 64x64 tiles a head"
+              f", {t_fma * 1e3:.6f} ms of float32 FMAs at the fp32 peak, "
+              f"{t_fma * 1e3 / t.device:.3f} of K5's time")
+    return t, pt, (b16, by), lt
 
 
 def to_float32(tree):
     if isinstance(tree, dict):
         return {k: to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_float32(v) for v in tree]
     return tree.float()
 
 
 def leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
             yield from leaves(v)
     else:
         yield tree
 
 
-def serve_phase(dev, card: str, counters: dict) -> int:
-    """Phase 7: serve mamba2-2.7b at full width; returns K6's launches."""
-    t0 = phase(f"7. serving {MODEL} at full width: ServeEngine(batch_slots="
-               f"{SERVE_SLOTS}, chunk_size={SERVE_CHUNK}), prompts "
-               f"{[n for n, _ in SERVE_REQS]}")
-    cfg = get_config(MODEL)
+def serve_phase(case: ServeCase, number: str, dev, card: str,
+                counters: dict) -> int:
+    """Serve ``case.model`` at full width; returns its kernel's launches on
+    the serving path."""
+    K = case.kernel
+    t0 = phase(f"{number}. serving {case.model} at full width: ServeEngine("
+               f"batch_slots={SERVE_SLOTS}, max_len={case.max_len}, "
+               f"chunk_size={SERVE_CHUNK}), prompts "
+               f"{[n for n, _ in case.reqs]}")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(case.model)
     t1 = time.perf_counter()
     params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
-    print(f"   {MODEL}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params} parameters in {cfg.dtype}, made from seed 0 in "
-          f"{time.perf_counter() - t1:.3f} s")
+    per_prefill = cfg.pattern_for_depth().count(case.kind)
+    print(f"   {case.model}: {cfg.num_layers} layers ({per_prefill} "
+          f"{case.kind}), d_model {cfg.d_model}, {n_params} parameters in "
+          f"{cfg.dtype}, made from seed 0 in {time.perf_counter() - t1:.3f} s")
     rng = np.random.RandomState(0)
     reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
-            for n, m in SERVE_REQS]
+            for n, m in case.reqs]
+    lengths = [len(p) for p, _ in reqs]
 
     def serve(mode, batch):
         eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                          max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK,
+                          max_len=case.max_len, chunk_size=SERVE_CHUNK,
                           decode_mode=mode)
         rids = [eng.submit(p, max_new_tokens=m) for p, m in batch]
         results, finished = {}, []
@@ -713,16 +913,17 @@ def serve_phase(dev, card: str, counters: dict) -> int:
     counts = {k: fn.launches for k, fn in counters.items()}
     print(f"   chunked: stats {stats}, {wall:.3f} s; launches on the serving "
           f"path: {counts}")
-    longer = sum(len(p) > 1 for p, _ in reqs)
-    want = longer * cfg.num_layers
-    if counts["K6"] != want or counts["K6"] == 0:
-        raise AssertionError(f"K6 launched {counts['K6']} times on the "
-                             f"serving path, expected {want} (one a layer "
-                             f"for each prefill of more than one token)")
-    print(f"   K6 launches {counts['K6']} = {cfg.num_layers} layers x "
+    longer = sum(n > 1 for n in lengths)
+    want = longer * per_prefill
+    if counts[K] != want or counts[K] == 0:
+        raise AssertionError(f"{K} launched {counts[K]} times on the "
+                             f"serving path, expected {want} (one a "
+                             f"{case.kind} layer for each prefill of more "
+                             f"than one token)")
+    print(f"   {K} launches {counts[K]} = {per_prefill} {case.kind} layers x "
           f"{longer} prefills of more than one token ({stats['prefills']} "
-          f"prefills; a one-token prompt is a decode step from a zero state, "
-          f"as in the reference)")
+          f"prefills; a one-token prompt is a decode step, as in the "
+          f"reference)")
     if stats["prefills"] != len(reqs) or stats["tokens_generated"] != sum(
             m for _, m in reqs):
         raise AssertionError(f"unexpected stats {stats}")
@@ -734,21 +935,22 @@ def serve_phase(dev, card: str, counters: dict) -> int:
     if host_tokens != tokens:
         raise AssertionError("chunked and host decode gave other tokens")
     print("   chunked and host decode give the same tokens")
-    k = [len(p) for p, _ in reqs].index(1000)
-    alone, alone_reqs, _, _ = serve("chunked", [reqs[k]])
-    if alone[0] != tokens[k]:
-        raise AssertionError("the 1000-token request served alone gave "
-                             "other tokens than in the batch")
-    r = alone_reqs[0]
-    print(f"   the 1000-token request alone gives the batch's tokens; time to"
-          f" first token alone {(r.t_first - r.t_submit) * 1e3:.3f} ms, in "
-          f"the batch {(done_reqs[k].t_first - done_reqs[k].t_submit) * 1e3:.3f}"
-          f" ms from submission")
+    for n in case.ttft:  # on a warm engine: everything built and loaded
+        k = lengths.index(n)
+        alone, alone_reqs, _, _ = serve("chunked", [reqs[k]])
+        if n == 1000 and alone[0] != tokens[k]:
+            raise AssertionError("the 1000-token request served alone gave "
+                                 "other tokens than in the batch")
+        r, b = alone_reqs[0], done_reqs[k]
+        same = " gives the batch's tokens;" if n == 1000 else ":"
+        print(f"   the {n}-token request alone{same} time to first token "
+              f"alone {(r.t_first - r.t_submit) * 1e3:.3f} ms, in the batch "
+              f"{(b.t_first - b.t_submit) * 1e3:.3f} ms from submission")
 
     # decode rate with every slot live: 4 requests admitted in one tick,
     # then whole chunks timed on the host clock (each ends in a host sync)
     eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                      max_len=SERVE_MAX_LEN, chunk_size=SERVE_CHUNK)
+                      max_len=case.max_len, chunk_size=SERVE_CHUNK)
     for _ in range(SERVE_SLOTS):
         eng.submit(rng.randint(0, cfg.vocab_size, 128).astype(np.int32),
                    max_new_tokens=1 + 6 * SERVE_CHUNK)
@@ -765,12 +967,13 @@ def serve_phase(dev, card: str, counters: dict) -> int:
           f"({wall / steps * 1e3:.3f} ms a step)")
 
     # one decode step at 4 slots and the 1000-token prefill under the
-    # profiler: launches, kernel time (K6's share), wall, idle share
+    # profiler: launches, kernel time (the kernel's share), wall, idle share
+    k = lengths.index(1000)
     prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
     for what, tok, caches in (
             (f"one decode step at {SERVE_SLOTS} slots", eng.cur, eng.caches),
             ("the 1000-token prefill", prompt,
-             init_caches(cfg, 1, SERVE_MAX_LEN, device=dev))):
+             init_caches(cfg, 1, case.max_len, device=dev))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -779,15 +982,18 @@ def serve_phase(dev, card: str, counters: dict) -> int:
             wall = (time.perf_counter() - t) * 1e3
         kern = device_kernels(prof)
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        k6 = [e for e in kern if "ssd_chunked" in e.name]
-        k6_ms = sum(e.time_range.elapsed_us() for e in k6) / 1e3
+        mine = [e for e in kern if case.name in e.name]
+        mine_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
         print(f"   {what}, profiled: {len(kern)} CUDA kernels "
               f"({len(kern) / cfg.num_layers:.1f} a layer), {busy:.3f} ms of "
-              f"kernel time ({len(k6)} K6 recorded, {k6_ms:.3f} ms) in "
+              f"kernel time ({len(mine)} {K} recorded, {mine_ms:.3f} ms) in "
               f"{wall:.3f} ms of wall (idle share {1 - busy / wall:.3f})")
 
-    # the prefill logits of the 1000-token prompt, K6 against plain SSD, in
-    # the served bf16 forward and in a float32 forward of the same weights
+    # the prefill logits of the checked prompt, the kernel against its plain
+    # version, in the served bf16 forward and in a float32 forward of the
+    # same weights
+    k = lengths.index(case.logits_len)
+    prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
 
     def logits_pair(c, p):
         lg_k, _ = lm.forward(p, c, prompt, last_token_only=True)
@@ -795,21 +1001,22 @@ def serve_phase(dev, card: str, counters: dict) -> int:
                              prompt, last_token_only=True)
         lg_k, lg_p = lg_k.float(), lg_p.float()
         rel = ((lg_k - lg_p).norm() / lg_p.norm()).item()
-        print(f"   1000-token prefill logits, {c.dtype}: K6 against plain "
-              f"SSD relative L2 {rel:.3e}, max abs diff "
-              f"{(lg_k - lg_p).abs().max().item():.6f}, max |logit| "
+        print(f"   {case.logits_len}-token prefill logits, {c.dtype}: {K} "
+              f"against its plain version relative L2 {rel:.3e}, max abs "
+              f"diff {(lg_k - lg_p).abs().max().item():.6f}, max |logit| "
               f"{lg_p.abs().max().item():.4f}; argmax "
               f"{int(lg_k[0, -1].argmax())} / {int(lg_p[0, -1].argmax())}")
         if lg_k.shape != (1, 1, cfg.vocab_size) or not bool(
                 lg_k.isfinite().all()):
-            raise AssertionError(f"prefill logits with K6: shape "
+            raise AssertionError(f"prefill logits with {K}: shape "
                                  f"{tuple(lg_k.shape)} or not finite")
         return lg_k, rel
 
     lg_k, rel = logits_pair(cfg, params)
     if rel > LOGITS_BF16_RTOL:
-        raise AssertionError(f"bf16 prefill logits with K6 are {rel} (relative"
-                             f" L2) from plain SSD's, above {LOGITS_BF16_RTOL}")
+        raise AssertionError(f"bf16 prefill logits with {K} are {rel} "
+                             f"(relative L2) from the plain version's, above "
+                             f"{LOGITS_BF16_RTOL}")
     if int(lg_k[0, -1].argmax()) != tokens[k][0]:
         raise AssertionError("the served first token is not the argmax of "
                              "the prefill logits")
@@ -818,13 +1025,15 @@ def serve_phase(dev, card: str, counters: dict) -> int:
     _, rel = logits_pair(c32, p32)
     del p32
     if rel > LOGITS_F32_RTOL:
-        raise AssertionError(f"float32 prefill logits with K6 are {rel} "
-                             f"(relative L2) from plain SSD's, above "
+        raise AssertionError(f"float32 prefill logits with {K} are {rel} "
+                             f"(relative L2) from the plain version's, above "
                              f"{LOGITS_F32_RTOL}")
     print(f"   peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB ({card})")
+    del params
+    torch.cuda.empty_cache()
     done(t0)
-    return counts["K6"]
+    return counts[K]
 
 
 if __name__ == "__main__":

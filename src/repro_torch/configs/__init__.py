@@ -1,10 +1,11 @@
 """Model configurations the port can build (a copy of ``repro.configs``).
 
-Only the attention-free Mamba-2 stack is listed: the other configurations
-of the reference need attention (K5), RG-LRU or MoE blocks, which later
-slices of the port bring.
+Listed: the attention-free Mamba-2 stack, the RG-LRU + local-attention
+hybrid RecurrentGemma-2B and the dense Qwen1.5-0.5B.  The other
+configurations of the reference need the MoE block or a modality frontend,
+which later slices of the port bring.
 """
-from . import mamba2_2p7b  # noqa: F401
+from . import mamba2_2p7b, qwen1p5_0p5b, recurrentgemma_2b  # noqa: F401
 from .base import (
     SHAPES,
     InputShape,
@@ -15,4 +16,4 @@ from .base import (
     shape_applicable,
 )
 
-ALL_ARCHS = ["mamba2-2.7b"]
+ALL_ARCHS = ["mamba2-2.7b", "recurrentgemma-2b", "qwen1.5-0.5b"]

@@ -33,6 +33,7 @@ COMPILE_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every exported function: name -> (argtypes, restype)
 SIGNATURES = {
     "taskbench_compute_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
@@ -48,6 +49,9 @@ SIGNATURES = {
     "ssd_chunked_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunked_smem_bytes": ([_I, _I, _I], _I),
+    "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_smem_bytes": ([_I], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

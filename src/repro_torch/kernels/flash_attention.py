@@ -1,0 +1,149 @@
+"""K5, the FlashAttention-2 forward: wrapper, plain version, launch count.
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
+Pallas TPU kernel ``_flash_kernel``).  The CUDA kernel is
+``csrc/flash_attention.cu``; its header says what bounds it on the H100 and
+how its design answers that.
+
+The function: q is taken to float32 and multiplied by ``scale`` (1/sqrt(D)
+unless given), k and v to float32; query i sits at position ``q_offset +
+i`` and key j at j; a key is allowed when ``j <= q_pos`` (causal) and
+``j > q_pos - window`` (a window given); masked scores are -1e30; the
+softmax is taken over the allowed keys in float32; a query that no key is
+allowed for gives 0 (the reference's ``attention_ref`` gives the mean of v
+there); the output is in q's type.  GQA: q head h reads kv head
+``h // (Hq // Hkv)``.
+
+Layout: q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), the layout
+``ops.attention`` and the models use (the Pallas kernel takes (B, H, S, D)
+after a transpose); the kernel reads it as it is, so nothing is copied.
+Any Sq and Skv: the kernel guards its ragged edges.  ``block_q`` and
+``block_k`` are the Pallas kernel's tile sizes; the result does not depend
+on them, and the CUDA kernel's tiles are 64 x 64.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128, 256)  # the head sizes K5 is built for
+SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+_TYPES = (torch.float32, torch.bfloat16)
+_POS_LIMIT = 1 << 30  # positions, offsets and windows the kernel takes
+
+
+def _scale(D: int, scale: Optional[float]) -> float:
+    return float(scale) if scale is not None else float(1.0 / np.sqrt(D))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: Optional[int] = None,
+                          q_offset: int = 0, scale: Optional[float] = None,
+                          block_q: int = 128, block_k: int = 128
+                          ) -> torch.Tensor:
+    """The plain PyTorch version: K5's function in float32, over the whole
+    score matrix at once (not in the kernel's block order)."""
+    _check(q, k, v, window, q_offset, block_q, block_k)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qf = q.float() * _scale(D, scale)
+    kf = torch.repeat_interleave(k.float(), group, dim=2)
+    vf = torch.repeat_interleave(v.float(), group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    alive = m > NEG_INF / 2
+    p = torch.where(alive, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    safe = torch.where(l > 0, l, 1.0)  # (B, Hq, Sq, 1)
+    return (o / safe.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def _check(q, k, v, window, q_offset, block_q, block_k) -> None:
+    """Validate shapes, types, devices and the static arguments."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, Sq, Hq, D), k and v (B, Skv, Hkv, "
+                         f"D) alike, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k and v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch or head size")
+    Hkv = k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"q heads {Hq} are not a multiple of kv heads {Hkv}")
+    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must be float32 or bfloat16, all "
+                         f"alike, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted({str(t.device) for t in (q, k, v)})}")
+    if not isinstance(q_offset, int):
+        raise ValueError(f"q_offset must be a Python int (a tensor offset "
+                         f"goes to ops.attention's ref path), got "
+                         f"{type(q_offset).__name__}")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be None or a positive int, got "
+                         f"{window!r}")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block sizes must be positive, got {block_q}, "
+                         f"{block_k}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Attention of q over k and v; returns (B, Sq, Hq, D) in q's type.
+
+    CPU tensors run the plain version; CUDA tensors launch K5 on the current
+    stream (counted in ``flash_attention.launches``).
+    """
+    _check(q, k, v, window, q_offset, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, q_offset, scale,
+                                     block_q, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"K5 is built for head sizes {HEAD_DIMS}, got D={D}")
+    big = max(Sq, Skv, abs(q_offset), window or 0)
+    if big >= _POS_LIMIT:
+        raise ValueError(f"positions, offsets and windows must stay below "
+                         f"{_POS_LIMIT}, got {big}")
+    lib = _build.library()
+    smem = lib.flash_attention_smem_bytes(D)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"D={D} needs {smem} bytes of shared memory a block,"
+                         f" above {SMEM_LIMIT}")
+    out = torch.empty_like(q)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
+        Hq, Hkv, D, _scale(D, scale), int(bool(causal)),
+        int(window is not None), int(window or 0), q_offset,
+        int(q.dtype == torch.bfloat16), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

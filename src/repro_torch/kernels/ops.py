@@ -1,12 +1,11 @@
 """Dispatch of the LM kernels (the port of ``repro.kernels.ops``).
 
-``impl`` selects the SSD path, as the reference's does:
-  - "auto": the K6 wrapper (``ssd.ssd_chunked``), which runs K6 on a CUDA
-    tensor and its plain version on a CPU tensor;
-  - "plain": ``ssd.ssd_chunked_plain``, asked for by name;
-  - "ref": the chunked oracle ``ref.ssd_chunked_ref``.
-
-``attention`` comes with the flash-attention kernel (K5).
+``impl`` selects the path, as the reference's does:
+  - "auto": the kernel's wrapper (``flash_attention.flash_attention``,
+    ``ssd.ssd_chunked``), which runs the kernel (K5, K6) on a CUDA tensor
+    and its plain version on a CPU tensor;
+  - "plain": the plain version, asked for by name;
+  - "ref": the oracles of ``ref``.
 """
 from __future__ import annotations
 
@@ -15,12 +14,49 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import flash_attention as _fa
 from . import ref as _ref
 from . import ssd as _ssd
 
 IMPLS = ("auto", "plain", "ref")
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
+
+
+# ------------------------------------------------------------- attention
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset=0, kv_positions: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None, impl: str = "auto",
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    The reference's rule (``repro/kernels/ops.py``): a ``kv_positions``
+    (ring caches) or a ``q_offset`` that is a tensor rather than a Python
+    int (cache cursors) goes to the oracle; so does ``impl="ref"``, which
+    takes the chunked oracle for long prefills (Sq >= 2048 and Skv >=
+    8192).  Everything else is the static-offset prefill and no-cache
+    path, on K5 (or its plain version).
+    """
+    _check_impl(impl)
+    if kv_positions is not None or not isinstance(q_offset, int):
+        impl = "ref"
+    if impl == "ref":
+        fn = _ref.attention_ref
+        if q.shape[1] >= 2048 and k.shape[1] >= 8192:
+            fn = _ref.attention_ref_chunked
+        return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                  kv_positions=kv_positions, scale=scale)
+    fn = _fa.flash_attention_plain if impl == "plain" else _fa.flash_attention
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+              window=window, q_offset=q_offset, scale=scale, block_q=block_q,
+              block_k=block_k)
+
+
+# ------------------------------------------------------------------ SSD
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, D: Optional[torch.Tensor] = None, chunk: int = 128,
         impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,8 +66,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     steps carry dt = 0 (decay exp(0) = 1, no input), so the final state is
     exact.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
+    _check_impl(impl)
     S = x.shape[1]
     chunk = min(chunk, S)
     pad = (-S) % chunk

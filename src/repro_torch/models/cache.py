@@ -1,16 +1,24 @@
-"""Decode caches of the port (the ``ssm`` kind of ``repro.models.cache``).
+"""Decode caches of the port (the port of ``repro.models.cache``).
 
-``LayerCache`` of kind ``ssm`` holds a Mamba-2 layer's conv tails
-(``conv_x`` (B, K-1, d_inner), ``conv_bc`` (B, K-1, 2GN), in the model
-dtype) and its float32 SSD state (B, H, P, N).  ``stack_caches`` gives the
-stacked layout: one ``LayerCache`` whose tensors lead with a layer dim.
-The ``full``, ``ring`` and ``rglru`` kinds come with attention and RG-LRU.
+``LayerCache`` kinds, per block kind:
+  full  - (B, max_len, Hkv, Dh) K/V, for full-attention layers
+  ring  - (B, W, Hkv, Dh) sliding-window ring buffer (local attention,
+          whenever the window W is below ``max_len``)
+  ssm   - Mamba-2 conv tails (B, K-1, d_inner) and (B, K-1, 2GN) and the
+          float32 SSD state (B, H, P, N)
+  rglru - conv tail (B, K-1, w) and the float32 recurrent state (B, w)
+The attention kinds carry a cursor ``pos``: a 0-d tensor (every row at the
+same depth) or, with ``per_slot_pos``, one a batch slot (B,), and an
+optional ``start`` (B,), each slot's first real row.  ``stack_caches``
+gives the stacked layout: one ``LayerCache`` whose tensors lead with a
+layer dim, for homogeneous stacks only.
 
 Unlike the reference's pure functions, the port updates caches in place:
-``model.forward`` writes each layer's new tails and state into the tensors
-it was given, and ``reset_slot`` / ``write_prompt`` overwrite one batch
-slot of the persistent serving cache (a list or a stacked cache), so the
-engine holds one copy of it for its whole life.
+attention layers write their K/V rows and advance ``pos`` on the device,
+``model.forward`` writes each recurrent layer's new tails and state into
+the tensors it was given, and ``reset_slot`` / ``write_prompt`` overwrite
+one batch slot of the persistent serving cache (a list or a stacked
+cache), so the engine holds one copy of it for its whole life.
 """
 from __future__ import annotations
 
@@ -21,45 +29,78 @@ import torch
 
 from .layers import dtype_of
 
-_STATE_FIELDS = ("conv_x", "conv_bc", "state")
+_STATE_FIELDS = ("k", "v", "conv_x", "conv_bc", "state", "conv", "h")
+_CURSOR_FIELDS = ("pos", "start")
+_FIELDS = _STATE_FIELDS + _CURSOR_FIELDS
 
 
 @dataclasses.dataclass
 class LayerCache:
     kind: str
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
     conv_x: Optional[torch.Tensor] = None
     conv_bc: Optional[torch.Tensor] = None
     state: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
+    h: Optional[torch.Tensor] = None
+    start: Optional[torch.Tensor] = None  # (B,) first real row (attn kinds)
 
     def tensors(self):
+        """The state tensors (K/V, tails, states), not the cursors."""
         return [getattr(self, f) for f in _STATE_FIELDS
                 if getattr(self, f) is not None]
 
     def layer(self, i: int) -> "LayerCache":
         """Views of layer ``i`` of a stacked cache (writes go through)."""
         return dataclasses.replace(self, **{
-            f: getattr(self, f)[i] for f in _STATE_FIELDS
+            f: getattr(self, f)[i] for f in _FIELDS
             if getattr(self, f) is not None})
 
 
 def init_layer_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                      per_slot_pos: bool = False, device=None) -> LayerCache:
-    """A zeroed cache for one layer.  ``max_len`` and ``per_slot_pos`` size
-    and place attention caches; an ``ssm`` cache has no cursor."""
-    if kind != "ssd":
+    """A zeroed cache for one layer of block kind ``kind``."""
+    if kind == "ssd":
+        d_in = cfg.ssm_expand * cfg.d_model
+        H, G, N = d_in // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+        K = cfg.ssm_conv
+        return LayerCache(
+            kind="ssm",
+            conv_x=torch.zeros(batch, K - 1, d_in, dtype=dtype, device=device),
+            conv_bc=torch.zeros(batch, K - 1, 2 * G * N, dtype=dtype,
+                                device=device),
+            state=torch.zeros(batch, H, cfg.ssm_headdim, N,
+                              dtype=torch.float32, device=device),
+        )
+    if kind == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return LayerCache(
+            kind="rglru",
+            conv=torch.zeros(batch, cfg.conv1d_width - 1, w, dtype=dtype,
+                             device=device),
+            h=torch.zeros(batch, w, dtype=torch.float32, device=device),
+        )
+    if kind == "attn":
+        window = cfg.window
+    elif kind == "local_attn":
+        window = cfg.local_window
+    elif kind == "moe":
         raise NotImplementedError(
-            f"no {kind!r} cache in the port yet: attention caches come with "
-            f"the flash-attention slice (K5), rglru with the RG-LRU slice")
-    d_in = cfg.ssm_expand * cfg.d_model
-    H, G, N = d_in // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
-    K = cfg.ssm_conv
+            f"no {kind!r} cache in the port yet: MoE blocks come with the "
+            f"MoE slice")
+    else:
+        raise ValueError(kind)
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+    pos0 = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.int64,
+                       device=device)
+    rows = window if window is not None and window < max_len else max_len
     return LayerCache(
-        kind="ssm",
-        conv_x=torch.zeros(batch, K - 1, d_in, dtype=dtype, device=device),
-        conv_bc=torch.zeros(batch, K - 1, 2 * G * N, dtype=dtype,
-                            device=device),
-        state=torch.zeros(batch, H, cfg.ssm_headdim, N, dtype=torch.float32,
-                          device=device),
+        kind="ring" if rows < max_len else "full",
+        k=torch.zeros(batch, rows, Hkv, Dh, dtype=dtype, device=device),
+        v=torch.zeros(batch, rows, Hkv, Dh, dtype=dtype, device=device),
+        pos=pos0,
     )
 
 
@@ -76,14 +117,15 @@ Caches = Union[LayerCache, List[LayerCache]]
 
 
 def stack_caches(caches: Sequence[LayerCache]) -> LayerCache:
-    """Per-layer list -> one LayerCache with a leading layer dim."""
+    """Per-layer list -> one LayerCache with a leading layer dim (for
+    homogeneous stacks: every layer the same kind and shape)."""
     kinds = {c.kind for c in caches}
     if len(kinds) != 1:
         raise ValueError(f"cannot stack heterogeneous cache kinds {kinds}")
     first = caches[0]
     return dataclasses.replace(first, **{
         f: torch.stack([getattr(c, f) for c in caches])
-        for f in _STATE_FIELDS if getattr(first, f) is not None})
+        for f in _FIELDS if getattr(first, f) is not None})
 
 
 def unstack_caches(stacked: LayerCache, num_layers: int) -> List[LayerCache]:
@@ -91,45 +133,82 @@ def unstack_caches(stacked: LayerCache, num_layers: int) -> List[LayerCache]:
     return [stacked.layer(i) for i in range(num_layers)]
 
 
-def _layers(caches: Caches) -> List[LayerCache]:
-    """Per-layer caches with the batch dim first (views of a stacked one)."""
-    if isinstance(caches, LayerCache):
-        return unstack_caches(caches, caches.tensors()[0].shape[0])
-    return list(caches)
+def _per_slot(a: torch.Tensor, stacked: bool) -> bool:
+    """Whether a cursor holds one value a slot (else one for all)."""
+    return a.ndim == (2 if stacked else 1)
+
+
+def _slot_view(a: torch.Tensor, slot: int, stacked: bool) -> torch.Tensor:
+    return a[:, slot] if stacked else a[slot]
+
+
+def _reset_layer(c: LayerCache, slot: int, stacked: bool) -> None:
+    for t in c.tensors():
+        _slot_view(t, slot, stacked).zero_()
+    for f in _CURSOR_FIELDS:
+        a = getattr(c, f)
+        if a is not None:
+            (_slot_view(a, slot, stacked) if _per_slot(a, stacked)
+             else a).zero_()
 
 
 def reset_slot(caches: Caches, slot: int) -> Caches:
-    """Zero batch slot ``slot`` across every layer, in place."""
+    """Zero batch slot ``slot`` across every layer (cursors included), in
+    place.  A scalar cursor is shared by every slot, and is zeroed."""
     if isinstance(caches, LayerCache):  # one write a field for all layers
-        for t in caches.tensors():
-            t[:, slot].zero_()
-        return caches
-    for c in caches:
-        for t in c.tensors():
-            t[slot].zero_()
+        _reset_layer(caches, slot, stacked=True)
+    else:
+        for c in caches:
+            _reset_layer(c, slot, stacked=False)
     return caches
+
+
+def _write_layer(c: LayerCache, p: LayerCache, slot: int,
+                 stacked: bool) -> None:
+    if c.kind != p.kind:
+        raise ValueError(f"cache kind mismatch: {c.kind} vs {p.kind}")
+    for f in _STATE_FIELDS:
+        a = getattr(c, f)
+        if a is not None:
+            src = getattr(p, f)
+            _slot_view(a, slot, stacked).copy_(src[:, 0] if stacked
+                                               else src[0])
+    for f in _CURSOR_FIELDS:
+        a = getattr(c, f)
+        if a is None:
+            continue
+        if not _per_slot(a, stacked):
+            raise ValueError(
+                "write_prompt needs per-slot cursors; build the engine cache "
+                "with init_caches(..., per_slot_pos=True)")
+        src = getattr(p, f)
+        dst = _slot_view(a, slot, stacked)
+        if src is None:
+            dst.zero_()
+        elif _per_slot(src, stacked):  # (1,) or (L, 1)
+            dst.copy_(src[..., 0])
+        else:
+            dst.copy_(src)
 
 
 def write_prompt(caches: Caches, slot: int, prefill: Caches) -> Caches:
     """Admit a prefilled request into batch slot ``slot``, in place.
 
-    ``prefill`` is the cache a B=1 unpadded prefill produced (a list or a
-    stacked cache); its whole per-slot state replaces whatever the freed
-    slot held, so admission into a dirty slot needs no reset first.
+    ``prefill`` is the cache a B=1 unpadded prefill produced, in the same
+    layout as ``caches``; its whole per-slot state (K/V rows, tails,
+    states and cursors) replaces whatever the freed slot held, so
+    admission into a dirty slot needs no reset first.
     """
-    if isinstance(caches, LayerCache) and isinstance(prefill, LayerCache):
-        pairs = [(caches, prefill, (slice(None), slot), (slice(None), 0))]
-    else:
-        dst, src = _layers(caches), _layers(prefill)
-        if len(dst) != len(src):
-            raise ValueError(f"{len(src)} prefill layers for {len(dst)} "
-                             f"layers")
-        pairs = [(c, p, slot, 0) for c, p in zip(dst, src)]
-    for c, p, at, row in pairs:
-        if c.kind != p.kind:
-            raise ValueError(f"cache kind mismatch: {c.kind} vs {p.kind}")
-        for f in _STATE_FIELDS:
-            a = getattr(c, f)
-            if a is not None:
-                a[at].copy_(getattr(p, f)[row])
+    if isinstance(caches, LayerCache):
+        if not isinstance(prefill, LayerCache):
+            prefill = stack_caches(prefill)
+        _write_layer(caches, prefill, slot, stacked=True)
+        return caches
+    if isinstance(prefill, LayerCache):
+        prefill = unstack_caches(prefill, prefill.tensors()[0].shape[0])
+    if len(caches) != len(prefill):
+        raise ValueError(f"{len(prefill)} prefill layers for {len(caches)} "
+                         f"layers")
+    for c, p in zip(caches, prefill):
+        _write_layer(c, p, slot, stacked=False)
     return caches

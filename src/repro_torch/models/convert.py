@@ -2,10 +2,12 @@
 
 ``params_from_jax`` takes the JAX package's parameters as numpy arrays
 (``split_leaves(init_model(...))[0]`` mapped through ``np.asarray``: nested
-dicts, ``blocks_scanned`` stacked on a leading layer dim) and returns the
-port's parameters, so that both packages compute
-the same function in the tests.  It imports no JAX: it walks the numpy
-tree by key, against the keys and shapes ``model.init_model`` makes.
+dicts, with ``blocks_scanned`` stacked on a leading layer dim or ``blocks``
+a list of per-layer dicts) and returns the port's parameters, so that both
+packages compute the same function in the tests.  It imports no JAX: it
+walks the numpy tree by key and index, against the keys, shapes and dtypes
+``model.init_model`` makes (the RG-LRU block's float32 ``lam``, ``b_a``
+and ``b_i`` among them).
 """
 from __future__ import annotations
 
@@ -34,6 +36,14 @@ def _carry(src, like, path: str, device: torch.device):
                              f"expects {sorted(like)}")
         return {k: _carry(src[k], like[k], f"{path}/{k}", device)
                 for k in like}
+    if isinstance(like, list):
+        if not isinstance(src, (list, tuple)) or len(src) != len(like):
+            got = (len(src) if isinstance(src, (list, tuple))
+                   else type(src).__name__)
+            raise ValueError(f"{path}: {got} layers, the port expects a list "
+                             f"of {len(like)}")
+        return [_carry(s, l, f"{path}/{i}", device)
+                for i, (s, l) in enumerate(zip(src, like))]
     t = _tensor(src, device)
     if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
         raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, the port "

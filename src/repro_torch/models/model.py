@@ -1,11 +1,19 @@
-"""The port's LM: builds a stack of Mamba-2 (``ssd``) blocks from its config.
+"""The port's LM: builds a model from its config (the port of
+``repro.models.model``).
 
-The port of the ``ssd`` branch of ``repro.models.model``.  Parameters are a
-nested dict of tensors with the reference's keys: ``embed``,
-``final_norm``, ``head`` when the embeddings are not tied, and the blocks
-stacked on a leading layer dim (``blocks_scanned``; the port loops over
-layers in Python, so it has no unstacked form).  Other block kinds raise
-``NotImplementedError`` naming the slice that brings them.
+Block kinds (cycled through ``cfg.block_pattern``):
+  attn       - pre-norm GQA attention + gated or plain MLP
+  local_attn - the same with ``cfg.local_window`` sliding window
+  ssd        - Mamba-2 mixer block (no MLP)
+  rglru      - Griffin recurrent block + MLP
+``moe`` raises ``NotImplementedError`` naming the slice that brings it.
+
+Parameters are a nested dict of tensors with the reference's keys:
+``embed``, ``final_norm``, ``head`` when the embeddings are not tied, and
+either the blocks stacked on a leading layer dim (``blocks_scanned``, for
+``cfg.scan_layers`` with one block kind) or a list of per-layer dicts
+(``blocks``: RecurrentGemma's heterogeneous 26-layer stack).  The port
+loops over layers in Python in both layouts.
 """
 from __future__ import annotations
 
@@ -16,22 +24,28 @@ import torch
 from ..backends.base import resolve_device
 from . import layers as L
 from .cache import LayerCache, unstack_caches
+from .rglru import apply_rglru_block, init_rglru_block
 from .ssm import apply_ssd_block, init_ssd_block
 
+KINDS = ("attn", "local_attn", "ssd", "rglru")
 _LATER = {
-    "attn": "attention blocks come with the flash-attention slice (K5)",
-    "local_attn": "attention blocks come with the flash-attention slice (K5)",
-    "moe": "MoE blocks come after the flash-attention slice (K5)",
-    "rglru": "RG-LRU blocks come with the recurrentgemma slice",
+    "moe": "MoE blocks come with the MoE slice (models/moe.py and its "
+           "configurations, mixtral-8x7b and arctic-480b)",
 }
 
 
 def check_supported(cfg) -> None:
     for kind in sorted(set(cfg.pattern_for_depth())):
-        if kind != "ssd":
+        if kind not in KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet; "
                 f"{_LATER.get(kind, 'no slice brings it yet')}")
+
+
+def scanned(cfg) -> bool:
+    """Whether the blocks are stacked on a layer dim (the reference scans
+    them): ``cfg.scan_layers`` and a single block kind."""
+    return bool(cfg.scan_layers) and len(set(cfg.pattern_for_depth())) == 1
 
 
 def _generator(generator, device: torch.device) -> Optional[torch.Generator]:
@@ -43,6 +57,28 @@ def _generator(generator, device: torch.device) -> Optional[torch.Generator]:
                              f"on {device}")
         return generator
     return torch.Generator(device).manual_seed(int(generator))
+
+
+def init_block(gen, kind: str, cfg, dtype, device,
+               layers: Optional[int] = None) -> Dict:
+    """One block's parameters, or ``layers`` blocks stacked."""
+    d = cfg.d_model
+    if kind in ("attn", "local_attn"):
+        return {
+            "norm1": L.init_norm(d, dtype, cfg.norm, device, layers),
+            "attn": L.init_attention(gen, cfg, dtype, device, layers),
+            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
+            "mlp": L.init_mlp(gen, cfg, dtype, device, layers),
+        }
+    if kind == "ssd":
+        return {"ssd": init_ssd_block(gen, cfg, dtype, device, layers)}
+    if kind == "rglru":
+        return {
+            "rec": init_rglru_block(gen, cfg, dtype, device, layers),
+            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
+            "mlp": L.init_mlp(gen, cfg, dtype, device, layers),
+        }
+    raise ValueError(kind)
 
 
 def init_model(cfg, generator: Union[torch.Generator, int] = 0,
@@ -61,8 +97,13 @@ def init_model(cfg, generator: Union[torch.Generator, int] = 0,
     if not cfg.tie_embeddings:
         tree["head"] = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
                                         device)
-    tree["blocks_scanned"] = {"ssd": init_ssd_block(
-        gen, cfg, dt, device, layers=cfg.num_layers)}
+    pattern = cfg.pattern_for_depth()
+    if scanned(cfg):
+        tree["blocks_scanned"] = init_block(gen, pattern[0], cfg, dt, device,
+                                            layers=cfg.num_layers)
+    else:
+        tree["blocks"] = [init_block(gen, kind, cfg, dt, device)
+                          for kind in pattern]
     return tree
 
 
@@ -73,19 +114,57 @@ def _index(tree, i: int):
 
 
 def layer_params(params: Dict, cfg) -> List[Dict]:
-    """Per-layer parameter dicts (views of the stacked tree)."""
+    """Per-layer parameter dicts (views of a stacked tree)."""
+    if "blocks" in params:
+        return list(params["blocks"])
     return [_index(params["blocks_scanned"], i)
             for i in range(cfg.num_layers)]
 
 
-def _write(cache: LayerCache, new: Dict) -> None:
-    """Write a block's new cache tensors in place.  A prompt shorter than
-    the conv window yields fewer tail rows than the cache holds: they go
-    into the leading rows and the others keep what they held, as the
-    reference's scan writes them (``dynamic_update_index_in_dim``)."""
+def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
+                positions: torch.Tensor, cache: Optional[LayerCache] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (x', new cache tensors of a recurrent block or None).  An
+    attention block updates its cache in place itself."""
+    new = None
+    if kind in ("attn", "local_attn"):
+        window = cfg.local_window if kind == "local_attn" else cfg.window
+        h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+        x = x + L.apply_attention(p["attn"], h, cfg, positions, window=window,
+                                  cache=cache, kernel_impl=cfg.kernel_impl)
+        h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+        x = x + L.apply_mlp(p["mlp"], h, cfg)
+    elif kind == "ssd":
+        a, new = apply_ssd_block(p["ssd"], x, cfg, cache=cache,
+                                 kernel_impl=cfg.kernel_impl)
+        x = x + a
+    elif kind == "rglru":
+        a, new = apply_rglru_block(p["rec"], x, cfg, cache=cache)
+        x = x + a
+        h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+        x = x + L.apply_mlp(p["mlp"], h, cfg)
+    else:
+        raise ValueError(kind)
+    return x, new
+
+
+def _write(cache: LayerCache, new: Dict, scan: bool = True) -> None:
+    """Write a recurrent block's new cache tensors in place.
+
+    A prompt shorter than the conv window yields fewer tail rows than the
+    cache holds.  The reference places them by how it runs the layers, and
+    the port follows it: a scanned stack writes them into the leading rows
+    and the others keep what they held (``dynamic_update_index_in_dim``);
+    an unrolled stack keeps the short tail as the layer's cache until
+    ``write_prompt`` broadcasts it over the rows (``.at[slot].set``), so it
+    is broadcast here.
+    """
     for f, src in new.items():
         dst = getattr(cache, f)
-        dst[:, :src.shape[1]].copy_(src)
+        if scan:
+            dst[:, :src.shape[1]].copy_(src)
+        else:
+            dst.copy_(src)
 
 
 def forward(params: Dict, cfg, tokens: torch.Tensor,
@@ -95,24 +174,28 @@ def forward(params: Dict, cfg, tokens: torch.Tensor,
                                                     List[LayerCache]]]]:
     """(B, S) tokens -> ((B, S or 1, vocab) logits, caches).
 
-    ``caches`` (a per-layer list or a stacked cache) is updated in place
-    and returned.  ``pos`` (the first token's position, scalar or (B,)) is
-    accepted for the reference's signature; an ``ssd`` stack has no
-    positional term and does not read it.
+    ``caches`` (a per-layer list, or a stacked cache for a scanned stack)
+    is updated in place and returned.  ``pos`` is the absolute position of
+    the first token, an int, a 0-d tensor or (B,) per-slot depths; it sets
+    the RoPE positions (attention caches keep their own cursors).
     """
     check_supported(cfg)
+    B, S = tokens.shape
     h = L.apply_embedding(params["embed"], tokens)
-    if isinstance(caches, LayerCache):
-        per_layer = unstack_caches(caches, cfg.num_layers)
+    steps = torch.arange(S, device=tokens.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos.to(tokens.device)[:, None] + steps[None, :]
     else:
-        per_layer = caches
+        positions = (steps + pos)[None, :].expand(B, S)
+    per_layer = (unstack_caches(caches, cfg.num_layers)
+                 if isinstance(caches, LayerCache) else caches)
+    scan = scanned(cfg)
+    pattern = cfg.pattern_for_depth()
     for i, bp in enumerate(layer_params(params, cfg)):
         cache_i = per_layer[i] if per_layer is not None else None
-        a, new = apply_ssd_block(bp["ssd"], h, cfg, cache=cache_i,
-                                 kernel_impl=cfg.kernel_impl)
-        h = h + a
+        h, new = apply_block(bp, pattern[i], h, cfg, positions, cache_i)
         if new is not None:
-            _write(cache_i, new)
+            _write(cache_i, new, scan)
     if last_token_only:
         h = h[:, -1:, :]
     h = L.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)

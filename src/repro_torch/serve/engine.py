@@ -23,8 +23,11 @@ Decode runs in one of two modes:
     on-device loop stops when every budget is 0.
   ``"host"`` — one step and one device round trip per token, the baseline.
 
-Both modes run the same ``model.forward`` step.  ``engine.stats`` counts
-prefills / decode steps / chunk launches / host syncs / tokens generated.
+Both modes run the same ``model.forward`` step.  The attention layers'
+per-slot cursors stay on the device and advance in place each step; the
+host keeps a mirror of them only for the RoPE positions it hands
+``forward`` once a chunk.  ``engine.stats`` counts prefills / decode steps
+/ chunk launches / host syncs / tokens generated.
 """
 from __future__ import annotations
 
@@ -65,10 +68,19 @@ def serve_step(params, tokens, caches, pos, *, cfg):
     return _greedy(logits)[:, None], caches
 
 
+def _new_caches(cfg, batch, max_len, device, per_slot_pos=False):
+    """Zeroed caches in the layout the model runs: stacked for a scanned
+    stack, else a per-layer list (as the reference's engine keeps them)."""
+    caches = init_caches(cfg, batch, max_len, per_slot_pos=per_slot_pos,
+                         device=device)
+    return stack_caches(caches) if M.scanned(cfg) else caches
+
+
 def _prefill_one(params, tokens, *, cfg, max_len):
-    """Unpadded single-request prefill into fresh B=1 caches; returns (the
-    first token as a 0-d device tensor, the caches)."""
-    caches = stack_caches(init_caches(cfg, 1, max_len, device=tokens.device))
+    """Unpadded single-request prefill into fresh B=1 caches (scalar
+    cursors); returns (the first token as a 0-d device tensor, the
+    caches)."""
+    caches = _new_caches(cfg, 1, max_len, tokens.device)
     logits, caches = M.forward(params, cfg, tokens, caches=caches, pos=0,
                                last_token_only=True)
     return _greedy(logits)[0], caches
@@ -130,9 +142,11 @@ class ServeEngine:
         self.decode_mode = decode_mode
         self.device = params["embed"]["table"].device
 
-        # ONE persistent slotted cache for the life of the engine.
-        self.caches = stack_caches(init_caches(
-            cfg, batch_slots, max_len, per_slot_pos=True, device=self.device))
+        # ONE persistent slotted cache for the life of the engine; the
+        # attention cursors live in it, on the device, and the layers
+        # advance them in place
+        self.caches = _new_caches(cfg, batch_slots, max_len, self.device,
+                                  per_slot_pos=True)
 
         B = batch_slots
         self.cur = torch.zeros((B, 1), dtype=torch.int64, device=self.device)

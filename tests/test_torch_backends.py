@@ -253,7 +253,8 @@ def test_port_sources_import_no_jax_and_no_reference():
 def test_import_and_run_load_no_jax_or_reference_module():
     code = (
         "import sys\n"
-        "import repro_torch, repro_torch.bench\n"
+        "import repro_torch, repro_torch.bench, repro_torch.serve\n"
+        "import repro_torch.models.model, repro_torch.kernels.ops\n"
         "from repro_torch.backends import get_backend\n"
         "from repro_torch.core import make_graph, check_outputs\n"
         "g = make_graph(width=4, height=3, iterations=2)\n"

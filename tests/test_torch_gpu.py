@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 and K6 on the card, against their plain versions.
+"""The CUDA kernels K1-K6 on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
 one.  The file imports neither JAX nor the reference package, so it runs
@@ -23,6 +23,8 @@ from repro_torch.kernels import (taskbench_compute,  # noqa: E402
                                  taskbench_compute_plain, taskbench_memory,
                                  taskbench_memory_plain)
 from repro_torch.kernels import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
                                      ssd_chunked_plain)
 
@@ -138,11 +140,30 @@ def test_k4_on_card_matches_plain(cuda, kind, pattern):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ngraphs", [1, 3])
 def test_k4_is_one_cuda_kernel_per_graph(cuda, ngraphs):
+    """The launch counter holds the count: one K4 a graph.  The profiler
+    can miss whole launches on the card, so of it this asks only, over
+    ``runs`` runs in one window, that it record at least one kernel, none
+    but K4 and no more than were launched (as chip_smoke.py phase 4
+    does)."""
+    from torch.profiler import ProfilerActivity, profile
+
     g = make_graph(width=8, height=6, iterations=4)
     runner = get_backend("cuda-fused[comm=onesided,ranks=4]").prepare_many(
         replicate(g, ngraphs))
-    kernels = profiled_kernels(runner)
-    assert len(kernels) == ngraphs, kernels
+    runs = 4
+    runner()
+    n = taskbench_onesided.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            runner()
+        torch.cuda.synchronize()
+    assert taskbench_onesided.launches - n == ngraphs * runs
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 1 <= len(kernels) <= ngraphs * runs, kernels
+    assert all("onesided_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.gpu
@@ -253,5 +274,89 @@ def test_reduced_mamba_serves_on_card_through_k6(cuda):
         longer = sum(len(p) > 1 for p, _ in reqs)
         assert ssd_chunked.launches - n == longer * cfg.num_layers
         assert eng.stats["prefills"] == len(reqs)
+    assert outs["chunked"] == outs["host"]
+    assert [len(o) for o in outs["chunked"]] == [m for _, m in reqs]
+
+
+# B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset: tests/test_kernels.py's
+# ATTN_CASES, ragged lengths, fully masked rows (a causal q_offset < 0),
+# and the full-width RecurrentGemma-2B prefill at S = 1000
+ATTN_CASES = [(2, 128, 128, 4, 2, 64, True, None, 0),
+              (1, 128, 256, 8, 8, 32, True, 64, 128),
+              (2, 64, 64, 4, 1, 64, False, None, 0),
+              (1, 256, 256, 2, 2, 128, True, 128, 0),
+              (2, 128, 128, 6, 3, 64, True, None, 0),
+              (2, 37, 37, 4, 2, 32, True, 16, 0),
+              (1, 100, 100, 6, 2, 64, False, None, 0),
+              (1, 300, 300, 10, 1, 256, True, 128, 0),
+              (1, 100, 100, 4, 2, 64, True, None, -60),
+              (1, 1000, 1000, 10, 1, 256, True, 2048, 0)]
+ATTN_TOL = 2e-5  # the reference's float32 kernel-test tolerance
+
+
+def attn_inputs(B, Sq, Skv, Hq, Hkv, D, device, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(device, dtype)
+            for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_k5_on_card_matches_plain(cuda, case, dtype):
+    """float32: |o - o_plain| <= 2e-5 (1 + |o_plain|); bf16 output: one bf16
+    ulp of o_plain more, for the rounding of two float32 values a float32
+    rounding apart."""
+    *shape, causal, window, q_offset = case
+    q, k, v = attn_inputs(*shape, cuda, dtype)
+    n = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    assert flash_attention.launches == n + 1
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset).float()
+    allowed = ATTN_TOL * (1 + ref.abs())
+    if dtype == torch.bfloat16:
+        allowed = allowed + bf16_ulp(ref)
+    assert o.dtype == dtype and bool(o.isfinite().all())
+    assert bool(((o.float() - ref).abs() <= allowed).all())
+    if q_offset < 0:
+        assert not o[:, :-q_offset].any()
+
+
+@pytest.mark.gpu
+def test_k5_rejects_what_it_does_not_take(cuda):
+    q, k, v = attn_inputs(1, 64, 64, 4, 2, 48, cuda, torch.float32)
+    n = flash_attention.launches
+    with pytest.raises(ValueError, match="head sizes"):
+        flash_attention(q, k, v)
+    q, k, v = attn_inputs(1, 64, 64, 4, 2, 64, cuda, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    assert flash_attention.launches == n
+
+
+@pytest.mark.gpu
+def test_reduced_gemma_serves_on_card_through_k5(cuda):
+    """One K5 launch a local_attn layer for every prefill of more than one
+    token (ring caches: max_len 96 > window 32), none in decode."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced(get_config("recurrentgemma-2b"))
+    params = init_model(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    reqs = [([1, 2, 3], 7), ([4, 5], 3), ([6], 5), (list(range(1, 71)), 5)]
+    outs = {}
+    for mode in ("chunked", "host"):
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=96,
+                          chunk_size=4, decode_mode=mode)
+        n = flash_attention.launches
+        rids = [eng.submit(np.array(p), max_new_tokens=m) for p, m in reqs]
+        out = eng.run()
+        outs[mode] = [out[r] for r in rids]
+        longer = sum(len(p) > 1 for p, _ in reqs)
+        local = cfg.pattern_for_depth().count("local_attn")
+        assert flash_attention.launches - n == longer * local
     assert outs["chunked"] == outs["host"]
     assert [len(o) for o in outs["chunked"]] == [m for _, m in reqs]

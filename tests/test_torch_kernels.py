@@ -329,8 +329,8 @@ def test_scratch_elems():
 # ---------------------------------------------------------------- build
 def test_build_names_repo_sources_and_sm90a():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["compute.cu", "fused.cu", "memory.cu", "onesided.cu",
-                    "ssd.cu"]
+    assert srcs == ["compute.cu", "flash_attention.cu", "fused.cu",
+                    "memory.cu", "onesided.cu", "ssd.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert _build.library_path().parent == _build.BUILD_DIR
     root = Path(__file__).resolve().parents[1]
@@ -350,6 +350,8 @@ def test_sources_export_every_bound_function():
     ("fused.cu", "src/repro/backends/megakernel.py::_fused_kernel"),
     ("onesided.cu", "src/repro/backends/megakernel.py::_onesided_kernel"),
     ("ssd.cu", "src/repro/kernels/ssd.py::_ssd_kernel"),
+    ("flash_attention.cu",
+     "src/repro/kernels/flash_attention.py::_flash_kernel"),
 ])
 def test_each_kernel_names_what_it_replaces_and_its_bound(src, replaces):
     head = (_build.CSRC / src).read_text().split("#include")[0]

@@ -72,13 +72,17 @@ def close(got, want, tol):
 
 # ---------------------------------------------------------------- configs
 def test_config_copy_equals_reference():
-    ref, port = rcfg.get_config(MODEL), tcfg.get_config(MODEL)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(tcfg.reduced(port)) == \
-        dataclasses.asdict(rcfg.reduced(ref))
-    assert port.pattern_for_depth() == ref.pattern_for_depth()
-    assert port.params_dense == ref.params_dense
-    assert tcfg.config_names() == [MODEL]
+    names = [MODEL, "recurrentgemma-2b", "qwen1.5-0.5b"]
+    for name in names:
+        ref, port = rcfg.get_config(name), tcfg.get_config(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert dataclasses.asdict(tcfg.reduced(port)) == \
+            dataclasses.asdict(rcfg.reduced(ref))
+        assert port.pattern_for_depth() == ref.pattern_for_depth()
+        assert port.params_dense == ref.params_dense
+    assert tcfg.config_names() == sorted(names)
+    assert tcfg.ALL_ARCHS == names
+    assert set(names) <= set(rcfg.ALL_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("yi-6b")
 
@@ -380,10 +384,10 @@ def test_params_from_jax_rejects_a_foreign_tree(reduced_pair):
 
 def test_other_block_kinds_name_their_slice():
     cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config(MODEL)),
-                              block_pattern=("attn",))
-    with pytest.raises(NotImplementedError, match="K5"):
+                              block_pattern=("attn", "moe"))
+    with pytest.raises(NotImplementedError, match="MoE slice"):
         TM.init_model(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(NotImplementedError, match="MoE slice"):
         init_caches(cfg, 1, 8, device="cpu")
 
 
