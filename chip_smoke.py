@@ -7,7 +7,9 @@ csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
 raise on failure:
 
 1. the card: name and power limit (nvidia-smi), SMs, max SM clock, versions;
-2. the build, timed;
+2. the build, timed, with ptxas's registers, spills and warnings for every
+   kernel (K5's eight instantiations among them), and the HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions in the SASS of K5's four bf16 ones;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of ``tests/test_kernels.py`` and at the main paths' full-size
    shapes: K1, K2, K3 and K4 bitwise for the empty, compute and memory
@@ -19,10 +21,13 @@ raise on failure:
    ``tests/test_kernels.py``, chunk 1 and 37, a ragged S=100 through
    ``ops.ssd`` and the full-width Mamba-2 2.7B prefill shape in float32 and
    in the model's types, within the tolerance ``PERF.md`` states; K5
-   (flash attention) in float32 and bf16 at ``tests/test_kernels.py``'s
-   attention cases, at ragged lengths 37, 100 and 300, with fully masked
-   rows (a causal q_offset < 0) and at the full-width RecurrentGemma-2B
-   prefill (Hq 10, Hkv 1, D 256, window 2048, S 1000 and 3000);
+   (flash attention) in float32 (its SIMT kernel) and bf16 (its wgmma/TMA
+   kernel) at ``tests/test_kernels.py``'s attention cases, at ragged
+   lengths 37, 100 and 300, with fully masked rows (a causal q_offset < 0),
+   at shapes the tensor-core kernel's tiles can get wrong (ragged GQA at
+   D=128, a chunked-prefill offset off the tile grid, non-causal MQA with
+   Skv no multiple of 64) and at the full-width RecurrentGemma-2B prefill
+   (Hq 10, Hkv 1, D 256, window 2048, S 1000 and 3000);
 4. the structural pin, over ``PIN_RUNS`` runs: the launch counter reads
    exactly one K3 launch a ``cuda-fused`` run, for 1 graph and for 3
    stacked graphs, and one K4 launch a graph of a
@@ -60,7 +65,8 @@ raise on failure:
 
 The line before the last lists the kernels with their launches on the main
 path, errors, times, bounds and (K5) the time of one library call for the
-same function; the last line is the device record.  Exits non-zero,
+same function; for K5, whose main path is bf16, the bf16 kernel's.  The
+last line is the device record.  Exits non-zero,
 printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
@@ -114,6 +120,7 @@ MEM_SCRATCH = 1 << 20
 MXU_RTOL, MXU_ATOL = 1e-5, 1e-6
 ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
 PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
+PROFILE_WINDOWS = 3  # profiled windows ``timed`` runs before it gives up
 # K6: tests/test_kernels.py's SSD cases, chunk 1 and 37 (B, S, H, P, G, N,
 # chunk), then the full-width Mamba-2 2.7B prefill of 1024 tokens
 SSD_CASES = ((2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
@@ -129,7 +136,8 @@ SSD_TOL = 1e-4  # float32: the same products summed in another order
 LOGITS_F32_RTOL, LOGITS_BF16_RTOL = 1e-4, 0.25
 SERVE_SLOTS, SERVE_CHUNK = 4, 8
 # K5: tests/test_kernels.py's ATTN_CASES, ragged lengths, fully masked rows
-# (a causal q_offset < 0), then the full-width RecurrentGemma-2B prefill
+# (a causal q_offset < 0), shapes the tensor-core kernel's 128 x 64 tiles
+# can get wrong, then the full-width RecurrentGemma-2B prefill
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset)
 ATTN_CASES = ((2, 128, 128, 4, 2, 64, True, None, 0),
               (1, 128, 256, 8, 8, 32, True, 64, 128),
@@ -139,7 +147,10 @@ ATTN_CASES = ((2, 128, 128, 4, 2, 64, True, None, 0),
               (2, 37, 37, 4, 2, 32, True, 16, 0),
               (1, 100, 100, 6, 2, 64, False, None, 0),
               (1, 300, 300, 10, 1, 256, True, 128, 0),
-              (1, 100, 100, 4, 2, 64, True, None, -60))
+              (1, 100, 100, 4, 2, 64, True, None, -60),
+              (2, 777, 777, 8, 2, 128, True, 256, 0),
+              (1, 100, 357, 4, 4, 256, True, None, 257),
+              (1, 130, 201, 10, 1, 256, False, None, 0))
 ATTN_FULL = tuple((1, S, S, 10, 1, 256, True, 2048, 0) for S in (1000, 3000))
 # float32: |o - o_plain| <= ATTN_TOL (1 + |o_plain|), the reference's own
 # kernel-test tolerance; a bf16 output one bf16 ulp of o_plain more
@@ -198,40 +209,46 @@ class Timing(NamedTuple):
     span: float  # first kernel or memset's start to the last one's end
     recorded: int  # kernel launches the profiler recorded
     reps: int
+    windows: int  # profiled windows run until one recorded a kernel
 
     def describe(self) -> str:
         return (f"device {self.device:.6f} ms (stream {self.stream:.6f} ms; "
                 f"profiler: {self.recorded} kernels recorded over {self.reps} "
-                f"calls, span {self.span:.6f} ms, memsets {self.memset:.6f} "
-                f"ms a call)")
+                f"calls in window {self.windows}, span {self.span:.6f} ms, "
+                f"memsets {self.memset:.6f} ms a call)")
 
 
 def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
     """Times a call of ``fn`` over ``reps`` back-to-back calls, after one
-    warm call: once under ``torch.profiler``, then with CUDA events alone
+    warm call: under ``torch.profiler``, then with CUDA events alone
     (stream ms, which also counts the gaps where the host has not issued
     the next launch yet).
 
     Device ms is the profiler's kernel time a call.  The profiler on the
-    H100 does not record every launch: some runs miss whole launches of a
-    long kernel (K3, K4), the ones it records being consecutive and of
-    the right length.  So for a kernel wrapper (``one_kernel``: one kernel
-    a call) device ms is the mean duration of the launches recorded;
-    otherwise it is the recorded kernel time over ``reps``.  Span and
-    memset ms are per call, span from the first kernel or memset's start
-    to the last one's end."""
+    H100 does not record every launch: some windows miss whole launches of
+    a long kernel (K3, K4), the ones it records being consecutive and of
+    the right length, and one window recorded none of 20 K5 launches.  So
+    a window that records no kernel is run again, up to PROFILE_WINDOWS
+    times; for a kernel wrapper (``one_kernel``: one kernel a call) device
+    ms is the mean duration of the launches recorded; otherwise it is the
+    recorded kernel time over ``reps``.  Span and memset ms are per call,
+    span from the first kernel or memset's start to the last one's end."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            break
+    else:
+        raise AssertionError(f"the profiler recorded no CUDA kernel in "
+                             f"{PROFILE_WINDOWS} windows")
     memsets = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name.startswith("Memset")]
-    if not kernels:
-        raise AssertionError("the profiler recorded no CUDA kernel")
     total = sum(e.time_range.elapsed_us() for e in kernels)
     device = total / len(kernels) if one_kernel else total / reps
     memset = sum(e.time_range.elapsed_us() for e in memsets)
@@ -244,7 +261,8 @@ def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
     end.record()
     torch.cuda.synchronize()
     return Timing(device / 1e3, start.elapsed_time(end) / reps,
-                  memset / 1e3 / reps, span / 1e3 / reps, len(kernels), reps)
+                  memset / 1e3 / reps, span / 1e3 / reps, len(kernels), reps,
+                  window)
 
 
 def ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
@@ -336,9 +354,9 @@ def attn_cost(B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, in_bytes):
 
 
 def k5_tiles(Sq, Skv, causal, window, q_offset, block=64) -> int:
-    """The 64 x 64 (query, key) tiles K5 visits a head: for each block of
-    query rows, the key tiles from the window's start to the causal end
-    (the Pallas kernel's grid visits all of them)."""
+    """The 64 x 64 (query, key) tiles K5's bf16 kernel computes a head: for
+    each 64-row half of a CTA, the key tiles from the window's start to the
+    causal end (the Pallas kernel's grid visits all of them)."""
     tiles = 0
     for q0 in range(0, Sq, block):
         q_first, q_last = q_offset + q0, q_offset + min(q0 + block, Sq) - 1
@@ -347,6 +365,43 @@ def k5_tiles(Sq, Skv, causal, window, q_offset, block=64) -> int:
         if hi > lo:
             tiles += -(-(hi - (lo // block) * block) // block)
     return tiles
+
+
+def k5_grid(Sq, Skv, Hq, causal, window, q_offset, sms) -> tuple:
+    """The bf16 kernel's grid in 64 x 64 tile products (a tile of a
+    warpgroup): the heaviest CTA's, an even share of all over ``sms`` SMs,
+    and the makespan of the CTAs issued in the kernel's order (heads
+    fastest, the last q blocks first when causal), each SM taking the next
+    CTA when its last one ends: the share of the time load balance sets."""
+    loads = []
+    for q0 in range(0, Sq, 128):
+        loads.append(sum(k5_tiles(min(64, Sq - r), Skv, causal, window,
+                                  q_offset + r) for r in (q0, q0 + 64)
+                         if r < Sq))
+    order = loads[::-1] if causal else loads
+    ends = [0] * sms
+    for load in (x for x in order for _ in range(Hq)):
+        i = ends.index(min(ends))
+        ends[i] += load
+    return max(loads), sum(loads) * Hq / sms, max(ends)
+
+
+def sass_counts(lib_path: Path, kernel: str) -> dict:
+    """{function: (HGMMA, UTMALDG)}: the wgmma and TMA-load instructions in
+    the SASS of each function of the built library whose name holds
+    ``kernel`` (``cuobjdump -sass``, beside nvcc)."""
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name is not None and kernel in name:
+            hgmma, tma = counts.get(name, (0, 0))
+            counts[name] = (hgmma + ("HGMMA" in line),
+                            tma + ("UTMALDG" in line))
+    return counts
 
 
 def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -429,14 +484,24 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   {_build.library_path().name} built and loaded in "
           f"{time.perf_counter() - t0:.3f} s")
     for line in _build.log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
+        if any(w in line for w in ("registers", "spill", "entry function",
+                                   "Performance Loss", "warning")):
             print("   " + line.strip())
     print(f"   K3 grid for {WIDTH} tasks: "
           f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks; K4 holds at most "
           f"{lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
           f"uses {lib.ssd_chunked_smem_bytes(64, 128, 128)} bytes of shared "
-          f"memory a CTA at P=64, N=128, chunk 128; K5 uses "
-          f"{lib.flash_attention_smem_bytes(256)} at D=256")
+          f"memory a CTA at P=64, N=128, chunk 128")
+    for D in (32, 64, 128, 256):  # dynamic, so ptxas does not count it
+        print(f"   K5 at D={D}: {lib.flash_attention_bf16_smem_bytes(D)} "
+              f"bytes of shared memory a CTA in bf16 (wgmma, TMA), "
+              f"{lib.flash_attention_f32_smem_bytes(D)} in float32")
+    sass = sass_counts(_build.library_path(), "flash_attention_sm90")
+    for name, (hgmma, tma) in sorted(sass.items()):
+        print(f"   {name}: {hgmma} HGMMA, {tma} UTMALDG instructions (SASS)")
+    if len(sass) != 4 or not all(h and t for h, t in sass.values()):
+        raise AssertionError(f"K5's bf16 kernels are not all on wgmma and "
+                             f"TMA: {sass}")
     done(t0)
 
     def bound(flops: float, nbytes: float, peak: float = peak_flops):
@@ -705,8 +770,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
                        + WIDTH * stencil.payload_elems * 4), None))
-    rows.append(("K5",) + attention_times(dev, bound, peak_bf16,
-                                          peak_flops))
+    rows.append(("K5",) + attention_times(dev, bound, peak_bf16, sms))
     *shape, chunk = SSD_FULL
     sargs = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
     B_, S_, H_, P_, _, N_ = shape
@@ -785,8 +849,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         "K4": ("taskbench_onesided",
                "src/repro_torch/kernels/csrc/onesided.cu",
                "src/repro/backends/megakernel.py:142"),
-        "K5": ("flash_attention",
-               "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "K5": ("flash_attention",  # timed in bf16, the main path's type
+               "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                "src/repro/kernels/flash_attention.py:29"),
         "K6": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu",
                "src/repro/kernels/ssd.py:25"),
@@ -799,12 +863,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
             for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
 
 
-def attention_times(dev, bound, peak_bf16: float, peak_fp32: float):
-    """K5 at the full-width RecurrentGemma-2B prefill shapes (bf16): its
-    device time, its plain version's, one scaled_dot_product_attention call
-    computing the same function (the yardstick; the port never calls it)
-    and the bounds.  Returns the S = 3000 row (timing, plain, bound,
-    library)."""
+def attention_times(dev, bound, peak_bf16: float, sms: int):
+    """K5 at the full-width RecurrentGemma-2B prefill shapes (bf16, its
+    tensor-core kernel): its device time, its plain version's, one
+    scaled_dot_product_attention call computing the same function (the
+    yardstick; the port never calls it), the bound and the rates reached.
+    Returns the S = 3000 row (timing, plain, bound, library)."""
     for case in ATTN_FULL:
         *shape, causal, window, q_offset = case
         S = shape[1]
@@ -831,23 +895,29 @@ def attention_times(dev, bound, peak_bf16: float, peak_fp32: float):
         flops, nbytes = attn_cost(*shape, causal, window, q_offset, 2)
         how = "is_causal" if mask is None else "window mask"
         b16, by = bound(flops, nbytes, peak_bf16)
-        b32, _ = bound(flops, nbytes)
         B, Sq, Skv, Hq, _, D = shape
+        # the products the kernel issues: for each 64-row half of a CTA and
+        # each 64-key tile in its band, S = Q K^T and P_hi V + P_lo V
         tiles = k5_tiles(Sq, Skv, causal, window, q_offset)
-        # each visited tile: two 64 x 64 x D products of FMAs
-        t_fma = B * Hq * tiles * 4 * 64 * 64 * D / peak_fp32
+        issued = B * Hq * tiles * 3 * 2 * 64 * 64 * D
+        heavy, even, makespan = k5_grid(Sq, Skv, Hq, causal, window,
+                                        q_offset, sms)
         print(f"   K5 at S={S} (B=1, Hq=10, Hkv=1, D=256, window {window}, "
               f"bf16): {t.describe()}; plain version {pt.describe()}; "
               f"scaled_dot_product_attention ({how}, enable_gqa; max abs "
-              f"diff from plain {lib_err:.3e}) "
-              f"{lt.describe()}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} "
-              f"MB: bound {b16 * 1e3:.6f} ms ({by}, bf16 tensor-core peak), "
-              f"{b32 * 1e3:.6f} ms at the fp32 peak; K5 is "
-              f"{t.device / (b16 * 1e3):.1f}x its bound and "
-              f"{t.device / lt.device:.2f}x the library call; K5 visits "
-              f"{tiles} of {-(-Sq // 64) * -(-Skv // 64)} 64x64 tiles a head"
-              f", {t_fma * 1e3:.6f} ms of float32 FMAs at the fp32 peak, "
-              f"{t_fma * 1e3 / t.device:.3f} of K5's time")
+              f"diff from plain {lib_err:.3e}) {lt.describe()}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
+              f"{b16 * 1e3:.6f} ms ({by}, bf16 tensor-core peak), K5 reaches "
+              f"{b16 * 1e3 / t.device:.3f} of it and is "
+              f"{t.device / lt.device:.3f}x the library call; "
+              f"{flops / t.device / 1e9:.3f} TFLOP/s of the function, "
+              f"{1.5 * flops / t.device / 1e9:.3f} of its 1.5x products "
+              f"(P as two bf16 terms); it issues {issued / 1e9:.3f} GFLOP "
+              f"({tiles} 64x64 tiles a head), "
+              f"{issued / t.device / 1e9:.3f} TFLOP/s; grid: "
+              f"{-(-Sq // 128) * Hq} CTAs, the heaviest {heavy} tile "
+              f"products, an even share {even:.1f} an SM, the in-order "
+              f"makespan {makespan} ({makespan / even:.3f}x the even share)")
     return t, pt, (b16, by), lt
 
 

@@ -3,8 +3,9 @@
 - bodies: plain step functions, the masked loop and ``run_kernel_columns``
 - compute: K1, the compute kernel (``csrc/compute.cu``)
 - memory: K2, the memory kernel (``csrc/memory.cu``)
-- flash_attention: K5, the FlashAttention-2 forward
-  (``csrc/flash_attention.cu``; a module, its wrapper of the same name)
+- flash_attention: K5, the FlashAttention-2 forward (bf16:
+  ``csrc/flash_attention_sm90.cuh`` on wgmma and TMA; float32:
+  ``csrc/flash_attention.cu``; a module, its wrapper of the same name)
 - ssd: K6, the Mamba-2 SSD chunked forward (``csrc/ssd.cu``)
 - ops / ref: the LM dispatch (``attention``, ``ssd``, ``ssd_decode_step``)
   and its oracles

@@ -10,24 +10,31 @@
 // Scores, the running max and sum and the accumulator are float32; masked
 // scores are -1e30, and a query that no key is allowed for gives 0.
 //
+// Two kernels, chosen by the wrapper from the input type:
+//   - bf16: flash_attention_sm90.cuh, on wgmma and TMA (its header says
+//     how);
+//   - float32: the SIMT kernel below.  The tensor cores multiply float32
+//     only as TF32, which the port does not use, so this path stays on
+//     float32 FMAs.
+//
 // Bound on the H100: operations.  Every allowed (query, key) pair costs
 // 4 D flops (the score and its share of P V) against 2 D input elements
 // per key tile shared by 64 queries; at the full-width RecurrentGemma-2B
 // prefill (B=1, Hq=10, Hkv=1, D=256, window 2048, S=3000) that is 41.4
-// GFLOP against ~3 MB of bf16 q, k, v and o.  This kernel does the
+// GFLOP against ~3 MB of bf16 q, k, v and o.  The float32 kernel does the
 // arithmetic in plain float32 FMAs (no tensor cores, no TF32), so the
 // float32 rate (~67 TFLOP/s) is its own limit; the bf16 tensor-core peak
 // is the card's.
 //
-// Design:
+// Design of the float32 kernel:
 //   - The TPU grid (batch, head, q block, k block) with the k blocks in
 //     order and m, l and acc in VMEM scratch becomes one CTA per (q block
 //     of 64 rows, head, batch) that loops over 64-key tiles itself, with
 //     m, l and the 64 x D accumulator in registers.
 //   - Key tiles that the causal mask or the window wholly removes are
 //     skipped, not masked: such a tile leaves m, l and acc as they are.
-//   - Shared memory holds the block's q (scaled, float32) and one k tile,
-//     both transposed (d-major), one v tile (key-major) and the 64 x 64
+//   - Shared memory holds the block's q (scaled) and one k tile, both
+//     transposed (d-major), one v tile (key-major) and the 64 x 64
 //     probabilities: 4 (3 D + 64) 64 bytes, 212,992 at D = 256, so one CTA
 //     fits an SM there (two at D = 128).  Both products are register-tiled
 //     over shared memory: a thread owns 4 x 4 scores (one float4 of q and
@@ -43,12 +50,12 @@
 //     rows are zero and never stored, padded keys are masked and their k
 //     and v rows zero, so any Sq and Skv run (the Pallas kernel needs
 //     multiples of its blocks).
-// D must be 32, 64, 128 or 256.  wgmma, TMA and warp specialisation are
-// later work.
-#include <cuda_bf16.h>
+// D must be 32, 64, 128 or 256.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -56,15 +63,6 @@ constexpr int kBQ = 64;  // query rows a CTA
 constexpr int kBK = 64;  // keys a tile
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float part(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -114,10 +112,11 @@ __host__ __device__ constexpr size_t smem_floats(int D) {
          static_cast<size_t>(kBK) * D + static_cast<size_t>(kBQ) * kBK;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
                            int Sq, int Skv, int Hq, int Hkv, float scale,
                            int causal, int has_window, int window,
                            int q_offset) {
@@ -138,13 +137,14 @@ __global__ void __launch_bounds__(kThreads)
   const int hk = h / (Hq / Hkv);
   const size_t q_pos = static_cast<size_t>(Hq) * D;    // q, o: one position
   const size_t kv_pos = static_cast<size_t>(Hkv) * D;  // k, v: one position
-  const T* qb = q + static_cast<size_t>(b) * Sq * q_pos +
-                static_cast<size_t>(h) * D;
-  T* ob = o + static_cast<size_t>(b) * Sq * q_pos + static_cast<size_t>(h) * D;
-  const T* kb = k + static_cast<size_t>(b) * Skv * kv_pos +
-                static_cast<size_t>(hk) * D;
-  const T* vb = v + static_cast<size_t>(b) * Skv * kv_pos +
-                static_cast<size_t>(hk) * D;
+  const float* qb = q + static_cast<size_t>(b) * Sq * q_pos +
+                    static_cast<size_t>(h) * D;
+  float* ob =
+      o + static_cast<size_t>(b) * Sq * q_pos + static_cast<size_t>(h) * D;
+  const float* kb = k + static_cast<size_t>(b) * Skv * kv_pos +
+                    static_cast<size_t>(hk) * D;
+  const float* vb = v + static_cast<size_t>(b) * Skv * kv_pos +
+                    static_cast<size_t>(hk) * D;
 
   // q, scaled in float32 as the reference does, transposed: lanes walk
   // rows so the shared stores are conflict-free
@@ -152,9 +152,9 @@ __global__ void __launch_bounds__(kThreads)
     const int r = e % kBQ, d0 = (e / kBQ) * 4;
     float val[4] = {0.f, 0.f, 0.f, 0.f};
     if (q0 + r < Sq) {
-      const T* src = qb + static_cast<size_t>(q0 + r) * q_pos + d0;
+      const float* src = qb + static_cast<size_t>(q0 + r) * q_pos + d0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) val[i] = load_f(src + i) * scale;
+      for (int i = 0; i < 4; ++i) val[i] = src[i] * scale;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) qT[(d0 + i) * kBQ + r] = val[i];
@@ -188,9 +188,9 @@ __global__ void __launch_bounds__(kThreads)
       const int c = e % kBK, d0 = (e / kBK) * 4;
       float val[4] = {0.f, 0.f, 0.f, 0.f};
       if (k0 + c < Skv) {
-        const T* src = kb + static_cast<size_t>(k0 + c) * kv_pos + d0;
+        const float* src = kb + static_cast<size_t>(k0 + c) * kv_pos + d0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) val[i] = load_f(src + i);
+        for (int i = 0; i < 4; ++i) val[i] = src[i];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) kT[(d0 + i) * kBK + c] = val[i];
@@ -199,9 +199,9 @@ __global__ void __launch_bounds__(kThreads)
       const int c = e / (D / 4), d0 = (e % (D / 4)) * 4;
       float val[4] = {0.f, 0.f, 0.f, 0.f};
       if (k0 + c < Skv) {
-        const T* src = vb + static_cast<size_t>(k0 + c) * kv_pos + d0;
+        const float* src = vb + static_cast<size_t>(k0 + c) * kv_pos + d0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) val[i] = load_f(src + i);
+        for (int i = 0; i < 4; ++i) val[i] = src[i];
       }
       *reinterpret_cast<float4*>(vs + c * D + d0) =
           make_float4(val[0], val[1], val[2], val[3]);
@@ -293,78 +293,102 @@ __global__ void __launch_bounds__(kThreads)
     const int r = q0 + 4 * ty + i;
     if (r >= Sq) continue;
     const float safe = l[i] > 0.f ? l[i] : 1.f;
-    T* dst = ob + static_cast<size_t>(r) * q_pos;
+    float* dst = ob + static_cast<size_t>(r) * q_pos;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int j = 0; j < kVec; ++j)
-        store_f(dst + (g * 16 + tx) * kVec + j, acc[i][g][j] / safe);
+        dst[(g * 16 + tx) * kVec + j] = acc[i][g][j] / safe;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
            int has_window, int window, int q_offset, cudaStream_t stream) {
   const size_t bytes = smem_floats(D) * sizeof(float);
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, scale,
-      causal, has_window, window, q_offset);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv,
+      scale, causal, has_window, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
-             int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
-             int has_window, int window, int q_offset, cudaStream_t stream) {
+}  // namespace
+
+extern "C" int flash_attention_f32_smem_bytes(int D) {
+  return static_cast<int>(smem_floats(D) * sizeof(float));
+}
+
+extern "C" int flash_attention_bf16_smem_bytes(int D) {
+  return sm90::smem_bytes(D);
+}
+
+// q, o: (batch, Sq, Hq, D); k, v: (batch, Skv, Hkv, D); all contiguous
+// float32.  D in {32, 64, 128, 256}, Hq a multiple of Hkv.  The window
+// applies when has_window.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* o, int batch,
+                                          int Sq, int Skv, int Hq, int Hkv,
+                                          int D, float scale, int causal,
+                                          int has_window, int window,
+                                          int q_offset, int device,
+                                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0 || Sq == 0 || Hq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
-                           has_window, window, q_offset, stream);
+      return launch<32>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
+                        has_window, window, q_offset, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
-                           has_window, window, q_offset, stream);
+      return launch<64>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
+                        has_window, window, q_offset, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
-                            causal, has_window, window, q_offset, stream);
+      return launch<128>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
+                         has_window, window, q_offset, s);
     case 256:
-      return launch<T, 256>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
-                            causal, has_window, window, q_offset, stream);
+      return launch<256>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
+                         has_window, window, q_offset, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-extern "C" int flash_attention_smem_bytes(int D) {
-  return static_cast<int>(smem_floats(D) * sizeof(float));
-}
-
-// q, o: (batch, Sq, Hq, D); k, v: (batch, Skv, Hkv, D); all contiguous, in
-// bf16 when is_bf16 else f32.  D in {32, 64, 128, 256}, Hq a multiple of
-// Hkv.  The window applies when has_window.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int batch,
-                                      int Sq, int Skv, int Hq, int Hkv, int D,
-                                      float scale, int causal, int has_window,
-                                      int window, int q_offset, int is_bf16,
-                                      int device, void* stream) {
+// As flash_attention_f32_launch for bf16 q, k, v and o, whose data and
+// strides must also be 16-byte aligned (TMA).
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* o, int batch,
+                                           int Sq, int Skv, int Hq, int Hkv,
+                                           int D, float scale, int causal,
+                                           int has_window, int window,
+                                           int q_offset, int device,
+                                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || Sq == 0 || Hq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, D,
-                                   scale, causal, has_window, window,
-                                   q_offset, s);
-  return launch_d<float>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, D, scale,
-                         causal, has_window, window, q_offset, s);
+  switch (D) {
+    case 32:
+      return sm90::launch<32>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
+                              causal, has_window, window, q_offset, s);
+    case 64:
+      return sm90::launch<64>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
+                              causal, has_window, window, q_offset, s);
+    case 128:
+      return sm90::launch<128>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
+                               causal, has_window, window, q_offset, s);
+    case 256:
+      return sm90::launch<256>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
+                               causal, has_window, window, q_offset, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,12 @@
 """K5, the FlashAttention-2 forward: wrapper, plain version, launch count.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
-Pallas TPU kernel ``_flash_kernel``).  The CUDA kernel is
-``csrc/flash_attention.cu``; its header says what bounds it on the H100 and
-how its design answers that.
+Pallas TPU kernel ``_flash_kernel``).  Two CUDA kernels, chosen here by the
+input type: bf16 runs ``csrc/flash_attention_sm90.cuh`` (wgmma and TMA, P
+carried to the tensor cores as two bf16 terms), float32 the SIMT kernel of
+``csrc/flash_attention.cu`` (float32 FMAs: the tensor cores would need
+TF32).  Their headers say what bounds them on the H100 and how their
+designs answer that.
 
 The function: q is taken to float32 and multiplied by ``scale`` (1/sqrt(D)
 unless given), k and v to float32; query i sits at position ``q_offset +
@@ -16,10 +19,10 @@ there); the output is in q's type.  GQA: q head h reads kv head
 
 Layout: q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), the layout
 ``ops.attention`` and the models use (the Pallas kernel takes (B, H, S, D)
-after a transpose); the kernel reads it as it is, so nothing is copied.
-Any Sq and Skv: the kernel guards its ragged edges.  ``block_q`` and
+after a transpose); the kernels read it as it is, so nothing is copied.
+Any Sq and Skv: the kernels mask their ragged edges.  ``block_q`` and
 ``block_k`` are the Pallas kernel's tile sizes; the result does not depend
-on them, and the CUDA kernel's tiles are 64 x 64.
+on them (the CUDA kernels' tiles are 64 or 128 query rows by 64 keys).
 """
 from __future__ import annotations
 
@@ -39,6 +42,20 @@ _POS_LIMIT = 1 << 30  # positions, offsets and windows the kernel takes
 
 def _scale(D: int, scale: Optional[float]) -> float:
     return float(scale) if scale is not None else float(1.0 / np.sqrt(D))
+
+
+def check_tma(name: str, ptr: int, strides, dtype: torch.dtype) -> None:
+    """Raise ValueError unless a tensor can be a TMA operand: its data
+    16-byte aligned and every stride but the innermost a multiple of 16
+    bytes (``strides`` in elements, as ``Tensor.stride()`` gives them)."""
+    size = dtype.itemsize
+    if ptr % 16:
+        raise ValueError(f"{name}: data at {ptr:#x} is not 16-byte aligned "
+                         f"(TMA needs it)")
+    if any((s * size) % 16 for s in strides[:-1]):
+        raise ValueError(f"{name}: strides {tuple(strides)} of {size}-byte "
+                         f"elements are not all multiples of 16 bytes (TMA "
+                         f"needs them)")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,7 +128,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q over k and v; returns (B, Sq, Hq, D) in q's type.
 
     CPU tensors run the plain version; CUDA tensors launch K5 on the current
-    stream (counted in ``flash_attention.launches``).
+    stream (counted in ``flash_attention.launches``): the tensor-core
+    kernel for bf16, the float32 kernel for float32.
     """
     _check(q, k, v, window, q_offset, block_q, block_k)
     if q.device.type == "cpu":
@@ -130,16 +148,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"positions, offsets and windows must stay below "
                          f"{_POS_LIMIT}, got {big}")
     lib = _build.library()
-    smem = lib.flash_attention_smem_bytes(D)
+    bf16 = q.dtype == torch.bfloat16
+    smem = (lib.flash_attention_bf16_smem_bytes(D) if bf16
+            else lib.flash_attention_f32_smem_bytes(D))
     if smem > SMEM_LIMIT:
         raise ValueError(f"D={D} needs {smem} bytes of shared memory a block,"
                          f" above {SMEM_LIMIT}")
     out = torch.empty_like(q)
-    err = lib.flash_attention_launch(
+    if bf16:  # the tensor-core kernel, whose loads are TMA's
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+            check_tma(name, t.data_ptr(), t.stride(), t.dtype)
+        launch = lib.flash_attention_bf16_launch
+    else:  # float32: the SIMT kernel
+        launch = lib.flash_attention_f32_launch
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
         Hq, Hkv, D, _scale(D, scale), int(bool(causal)),
-        int(window is not None), int(window or 0), q_offset,
-        int(q.dtype == torch.bfloat16), q.device.index,
+        int(window is not None), int(window or 0), q_offset, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

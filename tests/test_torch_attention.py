@@ -8,7 +8,14 @@ the reference's own kernel-test tolerances (``tests/test_kernels.py``:
 2e-5 in float32, 2e-2 in bf16), and to ``attention_ref`` at ragged
 lengths the Pallas kernel cannot take; the port's oracles are held to the
 reference's at 1e-5 (float32, the same sums).
+
+The arithmetic of K5's bf16 tensor-core kernel (``csrc/
+flash_attention_sm90.cuh``) is emulated here in plain torch and held to
+the plain version at the card tests' shapes, within the card's bf16
+tolerance; the wrapper's TMA precondition is tested on CPU tensors.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -33,6 +40,22 @@ ATTN_CASES = [
     (2, 128, 128, 6, 3, 64, True, None, 0, False),
 ]
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # the reference's kernel-test tolerances
+# tests/test_torch_gpu.py's ATTN_CASES, the shapes K5 is held to on the card:
+# B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset
+CARD_CASES = [(2, 128, 128, 4, 2, 64, True, None, 0),
+              (1, 128, 256, 8, 8, 32, True, 64, 128),
+              (2, 64, 64, 4, 1, 64, False, None, 0),
+              (1, 256, 256, 2, 2, 128, True, 128, 0),
+              (2, 128, 128, 6, 3, 64, True, None, 0),
+              (2, 37, 37, 4, 2, 32, True, 16, 0),
+              (1, 100, 100, 6, 2, 64, False, None, 0),
+              (1, 300, 300, 10, 1, 256, True, 128, 0),
+              (1, 100, 100, 4, 2, 64, True, None, -60),
+              (1, 1000, 1000, 10, 1, 256, True, 2048, 0),
+              (2, 777, 777, 8, 2, 128, True, 256, 0),
+              (1, 100, 357, 4, 4, 256, True, None, 257),
+              (1, 130, 201, 10, 1, 256, False, None, 0)]
+CARD_TOL = 2e-5  # the card's: |o - o_plain| <= 2e-5 (1 + |o_plain|), + 1 ulp
 REF_TOL = 1e-5  # float32 oracles against float32 oracles
 
 
@@ -223,3 +246,97 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tfa.flash_attention(*(a.to("meta") for a in (q, k, v)))
     with pytest.raises(ValueError, match=r"\(B, Sq, Hq, D\)"):
         tfa.flash_attention(q[0], k, v)
+
+
+# ------------------------------------- K5's bf16 kernel, emulated on the CPU
+def tensor_core_k5(q, k, v, causal, window, q_offset, split=True, block=64):
+    """The arithmetic of ``flash_attention_sm90.cuh`` in plain torch, float32
+    out: bf16 q . k summed in float32 and scaled after the product, 64-key
+    tiles through the online softmax, the row sum l over the float32 p, and
+    P carried to the P V product as bf16(p) + bf16(p - bf16(p)) (``split``)
+    or as bf16(p) alone."""
+    B, Sq, Hq, D = q.shape
+    Skv, group = k.shape[1], Hq // k.shape[2]
+    kf = k.float().repeat_interleave(group, 2)
+    vf = v.float().repeat_interleave(group, 2).permute(0, 2, 1, 3)
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1 / math.sqrt(D))
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s_all = torch.where(mask, s_all, tfa.NEG_INF)
+    m = torch.full((B, Hq, Sq, 1), tfa.NEG_INF)
+    l = torch.zeros(B, Hq, Sq, 1)
+    acc = torch.zeros(B, Hq, Sq, D)
+    for k0 in range(0, Skv, block):
+        s = s_all[..., k0:k0 + block]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alive = m_new > tfa.NEG_INF / 2
+        alpha = torch.where(alive, torch.exp(m - m_new), 0.0)
+        p = torch.where(alive, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        vt = vf[:, :, k0:k0 + block]
+        acc = acc * alpha + hi @ vt + lo @ vt
+        m = m_new
+    return (acc / torch.where(l > 0, l, 1.0)).permute(0, 2, 1, 3)
+
+
+def bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2 ** -126)))
+                      - 7)
+
+
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_tensor_core_arithmetic_meets_the_card_tolerance(case):
+    """P split into two bf16 terms keeps the bf16 output within the card's
+    tolerance of the plain version (and the float32 result within 2e-5 of
+    the plain version in float32); P as one bf16 term does not."""
+    *shape, causal, window, q_offset = case
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in qkv(B, Sq, Skv, Hq, Hkv, D))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ref = tfa.flash_attention_plain(q, k, v, **kw).float()
+    ref32 = tfa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    allowed = CARD_TOL * (1 + ref.abs()) + bf16_ulp(ref)
+    o32 = tensor_core_k5(q, k, v, causal, window, q_offset)
+    o = o32.to(torch.bfloat16).float()
+    assert bool(((o - ref).abs() <= allowed).all())
+    assert bool(((o32 - ref32).abs() <= CARD_TOL * (1 + ref32.abs())).all())
+    if q_offset < 0:
+        assert not o[:, :-q_offset].any()
+    single = tensor_core_k5(q, k, v, causal, window, q_offset, split=False)
+    assert not bool(((single.to(torch.bfloat16).float() - ref).abs()
+                     <= allowed).all())
+
+
+# ------------------------------------------------- K5's TMA precondition
+def test_tma_check_takes_contiguous_tensors():
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((1, 37, 10, 256), (2, 5, 3, 32)):
+            t = torch.zeros(shape, dtype=dtype)
+            tfa.check_tma("q", t.data_ptr(), t.stride(), t.dtype)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4, 7])
+def test_tma_check_rejects_misaligned_views(offset):
+    """A view whose data starts 2, 6, 8 or 14 bytes into a bf16 buffer."""
+    buf = torch.zeros(64 + 2 * 8 * 4 * 64, dtype=torch.bfloat16)
+    view = buf[offset:offset + 2 * 8 * 4 * 64].view(2, 8, 4, 64)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        tfa.check_tma("k", view.data_ptr(), view.stride(), view.dtype)
+    aligned = buf[8:8 + 2 * 8 * 4 * 64].view(2, 8, 4, 64)
+    tfa.check_tma("k", aligned.data_ptr(), aligned.stride(), aligned.dtype)
+
+
+def test_tma_check_rejects_strides_off_16_bytes():
+    t = torch.zeros(2, 8, 3, 36, dtype=torch.bfloat16)[..., :32]
+    assert t.stride() == (864, 108, 36, 1)  # 72-byte rows
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tfa.check_tma("v", t.data_ptr(), t.stride(), t.dtype)

@@ -280,7 +280,10 @@ def test_reduced_mamba_serves_on_card_through_k6(cuda):
 
 # B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset: tests/test_kernels.py's
 # ATTN_CASES, ragged lengths, fully masked rows (a causal q_offset < 0),
-# and the full-width RecurrentGemma-2B prefill at S = 1000
+# the full-width RecurrentGemma-2B prefill at S = 1000, then shapes the
+# tensor-core kernel's 128 x 64 tiles can get wrong: ragged GQA at D=128, a
+# chunked-prefill offset that is no tile multiple, non-causal MQA with Skv
+# no multiple of 64
 ATTN_CASES = [(2, 128, 128, 4, 2, 64, True, None, 0),
               (1, 128, 256, 8, 8, 32, True, 64, 128),
               (2, 64, 64, 4, 1, 64, False, None, 0),
@@ -290,7 +293,10 @@ ATTN_CASES = [(2, 128, 128, 4, 2, 64, True, None, 0),
               (1, 100, 100, 6, 2, 64, False, None, 0),
               (1, 300, 300, 10, 1, 256, True, 128, 0),
               (1, 100, 100, 4, 2, 64, True, None, -60),
-              (1, 1000, 1000, 10, 1, 256, True, 2048, 0)]
+              (1, 1000, 1000, 10, 1, 256, True, 2048, 0),
+              (2, 777, 777, 8, 2, 128, True, 256, 0),
+              (1, 100, 357, 4, 4, 256, True, None, 257),
+              (1, 130, 201, 10, 1, 256, False, None, 0)]
 ATTN_TOL = 2e-5  # the reference's float32 kernel-test tolerance
 
 
@@ -306,7 +312,7 @@ def attn_inputs(B, Sq, Skv, Hq, Hkv, D, device, dtype, seed=0):
 def test_k5_on_card_matches_plain(cuda, case, dtype):
     """float32: |o - o_plain| <= 2e-5 (1 + |o_plain|); bf16 output: one bf16
     ulp of o_plain more, for the rounding of two float32 values a float32
-    rounding apart."""
+    rounding apart; a row no key is allowed for is exactly 0."""
     *shape, causal, window, q_offset = case
     q, k, v = attn_inputs(*shape, cuda, dtype)
     n = flash_attention.launches
@@ -320,8 +326,34 @@ def test_k5_on_card_matches_plain(cuda, case, dtype):
         allowed = allowed + bf16_ulp(ref)
     assert o.dtype == dtype and bool(o.isfinite().all())
     assert bool(((o.float() - ref).abs() <= allowed).all())
-    if q_offset < 0:
-        assert not o[:, :-q_offset].any()
+    qpos = q_offset + np.arange(q.shape[1])
+    hi = np.minimum(qpos + 1, k.shape[1]) if causal else np.full_like(
+        qpos, k.shape[1])
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros_like(qpos))
+    keyless = torch.from_numpy(hi <= lo).to(cuda)
+    assert not o[:, keyless].any()
+
+
+def random_attn_case(seed):
+    """(B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset) from a seed: any
+    head size K5 takes, GQA groups of 1-3, lengths 1-400 off the tile grid,
+    a window or none, offsets that start before or after the keys; every
+    third case is not causal."""
+    r = np.random.RandomState(seed)
+    Hkv, group = int(r.randint(1, 3)), int(r.randint(1, 4))
+    window = None if r.rand() < 0.4 else int(r.randint(1, 200))
+    return (int(r.randint(1, 4)), int(r.randint(1, 300)),
+            int(r.randint(1, 400)), Hkv * group, Hkv,
+            int(r.choice([32, 64, 128, 256])), seed % 3 != 0, window,
+            int(r.randint(-100, 300)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", range(12))
+def test_k5_on_card_matches_plain_at_random_shapes(cuda, seed, dtype):
+    test_k5_on_card_matches_plain(cuda, random_attn_case(seed), dtype)
 
 
 @pytest.mark.gpu
@@ -334,6 +366,22 @@ def test_k5_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     assert flash_attention.launches == n
+
+
+@pytest.mark.gpu
+def test_k5_bf16_rejects_misaligned_views_and_launches_nothing(cuda):
+    """The tensor-core kernel loads by TMA: data 16-byte aligned."""
+    q, k, v = attn_inputs(1, 64, 64, 4, 2, 64, cuda, torch.bfloat16)
+    n = flash_attention.launches
+    buf = torch.zeros(k.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    for off in (1, 4):  # 2 and 8 bytes in
+        view = buf[off:off + k.numel()].view(k.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(q, view, v)
+    assert flash_attention.launches == n
+    flash_attention(q, buf[8:8 + k.numel()].view(k.shape), v)
+    assert flash_attention.launches == n + 1
 
 
 @pytest.mark.gpu

@@ -352,6 +352,8 @@ def test_sources_export_every_bound_function():
     ("ssd.cu", "src/repro/kernels/ssd.py::_ssd_kernel"),
     ("flash_attention.cu",
      "src/repro/kernels/flash_attention.py::_flash_kernel"),
+    ("flash_attention_sm90.cuh",
+     "src/repro/kernels/flash_attention.py::_flash_kernel"),
 ])
 def test_each_kernel_names_what_it_replaces_and_its_bound(src, replaces):
     head = (_build.CSRC / src).read_text().split("#include")[0]
