@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
+Builds the hand-written CUDA kernels K1-K6 from ``src/repro_torch/kernels/
 csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
 raise on failure:
 
 1. the card: name and power limit (nvidia-smi), SMs, max SM clock, versions;
 2. the build, timed, with ptxas's registers, spills and warnings for every
-   kernel (K5's eight instantiations among them), and the HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions in the SASS of K5's four bf16 ones;
+   kernel (K5's eight instantiations and K6's nine among them), the HGMMA
+   (wgmma) and UTMALDG (TMA load) instructions in the SASS of K5's four
+   bf16 ones, and the HGMMA instructions of K6's (failing on none in the
+   four tensor-core passes);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of ``tests/test_kernels.py`` and at the main paths' full-size
    shapes: K1, K2, K3 and K4 bitwise for the empty, compute and memory
@@ -19,8 +21,11 @@ raise on failure:
    memory with 1 MiB of scratch per column (132) and spread[radix=5] (8
    ranks, puts to every rank); K6 (SSD) at the shapes of
    ``tests/test_kernels.py``, chunk 1 and 37, a ragged S=100 through
-   ``ops.ssd`` and the full-width Mamba-2 2.7B prefill shape in float32 and
-   in the model's types, within the tolerance ``PERF.md`` states; K5
+   ``ops.ssd`` and the full-width Mamba-2 2.7B prefill shape, in float32
+   (its SIMT kernel) and in the model's bf16 (its tensor-core kernel; also
+   at every length serving gives it, 37, 128, 384, 1024 and 1536 tokens,
+   and past the tensor-core sizes on the SIMT kernel),
+   within the tolerance ``PERF.md`` states; K5
    (flash attention) in float32 (its SIMT kernel) and bf16 (its wgmma/TMA
    kernel) at ``tests/test_kernels.py``'s attention cases, at ragged
    lengths 37, 100 and 300, with fully masked rows (a causal q_offset < 0),
@@ -63,9 +68,12 @@ raise on failure:
    plain version, and the time to first token of the 1000- and 3000-token
    prompts alone.
 
-The line before the last lists the kernels with their launches on the main
-path, errors, times, bounds and (K5) the time of one library call for the
-same function; for K5, whose main path is bf16, the bf16 kernel's.  The
+The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
+gives it (SSD_SERVE), each pass apart.  The line before the last lists the
+kernels with their launches on the main path, errors, times, bounds and
+(K5) the time of one library call for the same function; for K5 and K6,
+whose main paths are bf16, the bf16 kernel's (K6's summed over its three
+passes, its bound at the bf16 tensor-core peak).  The
 last line is the device record.  Exits non-zero,
 printing no result, when no CUDA device is present.
 """
@@ -107,7 +115,7 @@ from repro_torch.kernels import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
-                                     ssd_chunked_plain)
+                                     ssd_chunked_plain, uses_tensor_cores)
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.cache import init_caches  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -120,13 +128,22 @@ MEM_SCRATCH = 1 << 20
 MXU_RTOL, MXU_ATOL = 1e-5, 1e-6
 ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
 PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
-PROFILE_WINDOWS = 3  # profiled windows ``timed`` runs before it gives up
+PROFILE_WINDOWS = 10  # ``timed``: 1 + the windows it may rerun when one
+# misses kernels or disagrees with the others
+TIMED_WINDOWS = 3  # profiled windows whose median ``timed`` reports; for a
+WINDOW_SPREAD = 0.10  # kernel wrapper all within this fraction of the least
 # K6: tests/test_kernels.py's SSD cases, chunk 1 and 37 (B, S, H, P, G, N,
 # chunk), then the full-width Mamba-2 2.7B prefill of 1024 tokens
 SSD_CASES = ((2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
              (2, 64, 2, 64, 2, 32, 64), (1, 9, 2, 8, 1, 4, 1),
              (2, 74, 4, 16, 2, 8, 37))
 SSD_FULL = (1, 1024, 80, 64, 1, 128, 128)
+# K6 at a mamba2-2.7b prefill of 37, 128, 300, 1000 and 1500 tokens (ops.ssd
+# pads a prompt to whole chunks of 128; a shorter one is one chunk)
+SSD_SERVE = tuple((1, S, 80, 64, 1, 128, min(S, 128))
+                  for S in (37, 128, 384, 1024, 1536))
+# bf16 shapes past the tensor-core kernel's P <= 64, N <= 128
+SSD_SIMT_BF16 = ((1, 128, 2, 128, 1, 16, 64), (1, 128, 2, 32, 1, 256, 64))
 SSD_TOL = 1e-4  # float32: the same products summed in another order
 # relative L2 of a served prefill's logits, the path's kernel (K6, K5)
 # against its plain version: tight in a float32 forward; in the bf16
@@ -209,16 +226,47 @@ class Timing(NamedTuple):
     span: float  # first kernel or memset's start to the last one's end
     recorded: int  # kernel launches the profiler recorded
     reps: int
-    windows: int  # profiled windows run until one recorded a kernel
+    windows: int  # profiled windows run
+    parts: tuple = ()  # (kernel, mean ms) of a wrapper's several kernels
+    readings: tuple = ()  # device ms of every window that counted, in order
+    agree: bool = True  # the median's windows lie within WINDOW_SPREAD
 
     def describe(self) -> str:
+        parts = "".join(f"; {name} {ms:.6f} ms" for name, ms in self.parts)
+        each = (f", each window's device ms "
+                f"{', '.join(f'{r:.6f}' for r in self.readings)}"
+                + ("" if self.agree else
+                   f" (more than {WINDOW_SPREAD:.0%} apart)")
+                if len(self.readings) > 1 else "")
         return (f"device {self.device:.6f} ms (stream {self.stream:.6f} ms; "
                 f"profiler: {self.recorded} kernels recorded over {self.reps} "
-                f"calls in window {self.windows}, span {self.span:.6f} ms, "
-                f"memsets {self.memset:.6f} ms a call)")
+                f"calls, {self.windows} windows{each}, span {self.span:.6f} "
+                f"ms, memsets {self.memset:.6f} ms a call{parts})")
 
 
-def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
+def profiled(fn, reps: int):
+    """One profiled window of ``reps`` calls: the profiler and the CUDA
+    kernels it recorded, by name, each with its durations in us."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in device_kernels(prof):
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return prof, by_name
+
+
+def agreeing(readings: list, n: int):
+    """The ``n`` readings closest together, sorted, if the largest is within
+    WINDOW_SPREAD of the least; else None."""
+    s = sorted(readings)
+    groups = [s[i:i + n] for i in range(len(s) - n + 1)
+              if s[i + n - 1] <= s[i] * (1 + WINDOW_SPREAD)]
+    return min(groups, key=lambda g: g[-1] / g[0], default=None)
+
+
+def timed(fn, reps: int, kernels_a_call: int = 0) -> Timing:
     """Times a call of ``fn`` over ``reps`` back-to-back calls, after one
     warm call: under ``torch.profiler``, then with CUDA events alone
     (stream ms, which also counts the gaps where the host has not issued
@@ -228,29 +276,58 @@ def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
     H100 does not record every launch: some windows miss whole launches of
     a long kernel (K3, K4), the ones it records being consecutive and of
     the right length, and one window recorded none of 20 K5 launches.  So
-    a window that records no kernel is run again, up to PROFILE_WINDOWS
-    times; for a kernel wrapper (``one_kernel``: one kernel a call) device
-    ms is the mean duration of the launches recorded; otherwise it is the
-    recorded kernel time over ``reps``.  Span and memset ms are per call,
-    span from the first kernel or memset's start to the last one's end."""
+    a window that records no kernel, or for a kernel wrapper fewer than
+    its ``kernels_a_call`` distinct CUDA kernels (K6's bf16 path: three
+    passes), does not count.  A window's device ms is, for a kernel
+    wrapper, the sum over its kernels of the mean duration of the launches
+    recorded, otherwise the recorded kernel time over ``reps``.  Device ms
+    is the median of TIMED_WINDOWS windows that count, and every window's
+    reading is kept and printed: the profiler has read every K6 pass at
+    under half its duration in one window (the windows before and after
+    agreeing), and a plain version's kernels likewise.  For a kernel
+    wrapper, whose device ms the kernels line reports, the median's
+    windows must also agree, all within WINDOW_SPREAD of the least of
+    them; for a plain version or a library call, which the line reports
+    beside it, a disagreement is printed.  Windows are run again while too
+    few count or (a wrapper's) agree, PROFILE_WINDOWS - 1 times at most;
+    then ``timed`` fails.  Span and memset ms are per call, of the median
+    window, span from the first kernel or memset's start to the last
+    one's end."""
     fn()
     torch.cuda.synchronize()
-    for window in range(1, PROFILE_WINDOWS + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        if kernels:
-            break
-    else:
-        raise AssertionError(f"the profiler recorded no CUDA kernel in "
-                             f"{PROFILE_WINDOWS} windows")
+    runs, windows = [], 0
+    while len(runs) < TIMED_WINDOWS or (
+            kernels_a_call
+            and agreeing([r[0] for r in runs], TIMED_WINDOWS) is None):
+        if windows == TIMED_WINDOWS + PROFILE_WINDOWS - 1:
+            if len(runs) < TIMED_WINDOWS:
+                raise AssertionError(
+                    f"only {len(runs)} of {windows} profiled windows "
+                    f"recorded {max(kernels_a_call, 1)} CUDA kernel(s)")
+            raise AssertionError(
+                f"no {TIMED_WINDOWS} of the profiled windows' device times "
+                f"{[r[0] / 1e3 for r in runs]} ms lie within "
+                f"{WINDOW_SPREAD:.0%} of one another")
+        windows += 1
+        prof, by_name = profiled(fn, reps)
+        if not by_name or len(by_name) < kernels_a_call:
+            continue
+        if kernels_a_call and len(by_name) != kernels_a_call:
+            raise AssertionError(f"expected {kernels_a_call} CUDA kernel(s) "
+                                 f"a call, the profiler recorded "
+                                 f"{sorted(by_name)}")
+        device = (sum(sum(d) / len(d) for d in by_name.values())
+                  if kernels_a_call
+                  else sum(sum(d) for d in by_name.values()) / reps)
+        runs.append((device, prof, by_name))
+    readings = tuple(r[0] / 1e3 for r in runs)
+    group = agreeing([r[0] for r in runs], TIMED_WINDOWS)
+    median = (group or sorted(r[0] for r in runs))[TIMED_WINDOWS // 2]
+    device, prof, by_name = next(r for r in runs if r[0] == median)
+    kernels = device_kernels(prof)
     memsets = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name.startswith("Memset")]
-    total = sum(e.time_range.elapsed_us() for e in kernels)
-    device = total / len(kernels) if one_kernel else total / reps
     memset = sum(e.time_range.elapsed_us() for e in memsets)
     span = (max(e.time_range.end for e in kernels + memsets)
             - min(e.time_range.start for e in kernels + memsets))
@@ -260,9 +337,12 @@ def timed(fn, reps: int, one_kernel: bool = False) -> Timing:
         fn()
     end.record()
     torch.cuda.synchronize()
+    parts = (tuple((name.split("(")[0].removeprefix("void "),
+                    sum(d) / len(d) / 1e3) for name, d in by_name.items())
+             if kernels_a_call > 1 else ())
     return Timing(device / 1e3, start.elapsed_time(end) / reps,
                   memset / 1e3 / reps, span / 1e3 / reps, len(kernels), reps,
-                  window)
+                  windows, parts, readings, group is not None)
 
 
 def ssd_inputs(B, S, H, P, G, N, dev, dtype=torch.float32, seed=0):
@@ -496,12 +576,25 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         print(f"   K5 at D={D}: {lib.flash_attention_bf16_smem_bytes(D)} "
               f"bytes of shared memory a CTA in bf16 (wgmma, TMA), "
               f"{lib.flash_attention_f32_smem_bytes(D)} in float32")
+    for N in (64, 128):
+        print(f"   K6 in bf16 at N={N}: "
+              f"{lib.ssd_chunked_bf16_smem_bytes(N, 0)} bytes of shared "
+              f"memory a CTA in pass (a), "
+              f"{lib.ssd_chunked_bf16_smem_bytes(N, 1)} in pass (c)")
     sass = sass_counts(_build.library_path(), "flash_attention_sm90")
     for name, (hgmma, tma) in sorted(sass.items()):
         print(f"   {name}: {hgmma} HGMMA, {tma} UTMALDG instructions (SASS)")
     if len(sass) != 4 or not all(h and t for h, t in sass.values()):
         raise AssertionError(f"K5's bf16 kernels are not all on wgmma and "
                              f"TMA: {sass}")
+    sass = sass_counts(_build.library_path(), "ssd_chunked")
+    for name, (hgmma, _) in sorted(sass.items()):
+        print(f"   {name}: {hgmma} HGMMA instructions (SASS)")
+    tensor = {n: h for n, (h, _) in sass.items()
+              if "ssd_chunked_state" in n or "ssd_chunked_scan" in n}
+    if len(tensor) != 4 or not all(tensor.values()):
+        raise AssertionError(f"K6's bf16 passes (a) and (c) are not all on "
+                             f"wgmma: {sass}")
     done(t0)
 
     def bound(flops: float, nbytes: float, peak: float = peak_flops):
@@ -626,12 +719,23 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     errs["K6"] = max(errs["K6"], ssd_agree(
         "ragged S=100 chunk 32 (ops.ssd)", ssd_ops.ssd(*args, chunk=32),
         ssd_ops.ssd(*args, chunk=32, impl="plain")))
-    *shape, chunk = SSD_FULL
-    args = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
+    # bf16 x, B and C: the tensor-core kernel at every shape above and at
+    # every shape serving gives it (SSD_SERVE, the full shape among them),
+    # and past its sizes (P > 64, N > 128) the SIMT one
+    for case in SSD_CASES + SSD_SERVE + SSD_SIMT_BF16:
+        *shape, chunk = case
+        args = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
+        kind = ("tensor cores" if uses_tensor_cores(args[0], args[3])
+                else "SIMT")
+        errs["K6"] = max(errs["K6"], ssd_agree(
+            f"{tuple(shape)} chunk {chunk} bf16 x/B/C ({kind})",
+            ssd_chunked(*args, chunk=chunk),
+            ssd_chunked_plain(*args, chunk=chunk)))
+    args = ssd_inputs(1, 100, 4, 16, 2, 8, dev, dtype=torch.bfloat16)
     errs["K6"] = max(errs["K6"], ssd_agree(
-        f"{tuple(shape)} chunk {chunk} bf16 x/B/C", ssd_chunked(*args,
-                                                               chunk=chunk),
-        ssd_chunked_plain(*args, chunk=chunk)))
+        "ragged S=100 chunk 32 (ops.ssd) bf16 x/B/C",
+        ssd_ops.ssd(*args, chunk=32), ssd_ops.ssd(*args, chunk=32,
+                                                  impl="plain")))
     errs["K5"] = 0.0
     for case in ATTN_CASES + ATTN_FULL:
         *shape, causal, window, q_offset = case
@@ -736,7 +840,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     its = torch.full((WIDTH,), MAIN_ITERS, dtype=torch.int32, device=dev)
     rows.append(("K1", timed(lambda: taskbench_compute(tiles, its,
                                                        MAIN_ITERS), 200,
-                             one_kernel=True),
+                             kernels_a_call=1),
                  timed(lambda: taskbench_compute_plain(tiles, its,
                                                        MAIN_ITERS), 20),
                  bound(WIDTH * 1024 * 2 * MAIN_ITERS,
@@ -747,14 +851,14 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     reps = sum(MEM_ITERS // nwin + (w < MEM_ITERS % nwin)
                for w in range(nwin))
     rows.append(("K2", timed(lambda: taskbench_memory(xs, itm, span), 50,
-                             one_kernel=True),
+                             kernels_a_call=1),
                  timed(lambda: taskbench_memory_plain(xs, itm, span), 5),
                  bound(WIDTH * reps * span * 2, WIDTH * (size * 8 + 4)),
                  None))
     tabs, kw, _, _ = fused_pair([stencil])
     table_bytes = sum(t.numel() * 4 for t in tabs[:4])
     rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10,
-                             one_kernel=True),
+                             kernels_a_call=1),
                  timed(lambda: taskbench_fused_plain(*tabs, **kw), 2),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        table_bytes + WIDTH * stencil.payload_elems * 4),
@@ -765,19 +869,13 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     inbox_bytes = 2 * WIDTH * (HEIGHT - 1) * n_off * plan.a2a_cap \
         * stencil.payload_elems * 4
     rows.append(("K4", timed(lambda: taskbench_onesided(*otabs, **okw), 10,
-                             one_kernel=True),
+                             kernels_a_call=1),
                  timed(lambda: taskbench_onesided_plain(*otabs, **okw), 2),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
                        + WIDTH * stencil.payload_elems * 4), None))
     rows.append(("K5",) + attention_times(dev, bound, peak_bf16, sms))
-    *shape, chunk = SSD_FULL
-    sargs = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
-    B_, S_, H_, P_, _, N_ = shape
-    rows.append(("K6", timed(lambda: ssd_chunked(*sargs, chunk=chunk), 20,
-                             one_kernel=True),
-                 timed(lambda: ssd_chunked_plain(*sargs, chunk=chunk), 3),
-                 bound(*ssd_bound(B_, S_, H_, P_, N_, chunk, 2)), None))
+    rows.append(("K6",) + ssd_times(dev, bound, peak_bf16))
     for name, t, plain, (bs, by), library in rows:
         lib_text = ("" if library is None else
                     f"; library call {library.describe()}")
@@ -792,15 +890,16 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     empty = stencil.with_kernel(KernelSpec(kind="empty"))
     etabs, ekw, _, _ = fused_pair([empty])
     _, eotabs, eokw, _, _ = onesided_pair(empty, WIDTH)
-    k3e = timed(lambda: taskbench_fused(*etabs, **ekw), 10, one_kernel=True)
+    k3e = timed(lambda: taskbench_fused(*etabs, **ekw), 10,
+                kernels_a_call=1)
     k4e = timed(lambda: taskbench_onesided(*eotabs, **eokw), 10,
-                one_kernel=True)
+                kernels_a_call=1)
     print(f"   empty body, same graph: K3 {k3e.device / HEIGHT * 1e3:.4f} us "
           f"a timestep, {k3e.describe()}; K4 at {WIDTH} ranks "
           f"{k4e.device / HEIGHT * 1e3:.4f} us a timestep, {k4e.describe()}")
     _, otabs4, okw4, _, _ = onesided_pair(stencil, 4)
     k4r4 = timed(lambda: taskbench_onesided(*otabs4, **okw4), 5,
-                 one_kernel=True)
+                 kernels_a_call=1)
     print(f"   K4 at 4 ranks ({WIDTH // 4} tasks a CTA a timestep): "
           f"{k4r4.device / HEIGHT * 1e3:.4f} us a timestep, "
           f"{k4r4.describe()}")
@@ -852,7 +951,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         "K5": ("flash_attention",  # timed in bf16, the main path's type
                "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
                "src/repro/kernels/flash_attention.py:29"),
-        "K6": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd.cu",
+        "K6": ("ssd_chunked",  # timed in bf16, the main path's type
+               "src/repro_torch/kernels/csrc/ssd_sm90.cuh",
                "src/repro/kernels/ssd.py:25"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
@@ -889,7 +989,7 @@ def attention_times(dev, bound, peak_bf16: float, sms: int):
         plain = flash_attention_plain(q, k, v, **kw).float()
         lib_err = (sdpa().transpose(1, 2).float() - plain).abs().max().item()
         t = timed(lambda: flash_attention(q, k, v, **kw), 20,
-                  one_kernel=True)
+                  kernels_a_call=1)
         pt = timed(lambda: flash_attention_plain(q, k, v, **kw), 3)
         lt = timed(sdpa, 20)
         flops, nbytes = attn_cost(*shape, causal, window, q_offset, 2)
@@ -919,6 +1019,36 @@ def attention_times(dev, bound, peak_bf16: float, sms: int):
               f"products, an even share {even:.1f} an SM, the in-order "
               f"makespan {makespan} ({makespan / even:.3f}x the even share)")
     return t, pt, (b16, by), lt
+
+
+def ssd_times(dev, bound, peak_bf16: float):
+    """K6 at the shapes a ``mamba2-2.7b`` prefill gives it (SSD_SERVE, bf16:
+    its tensor-core kernel, three CUDA kernels a call): device time, each
+    pass's, the CTAs of each pass and the bound, at the bf16 tensor-core
+    peak and at the fp32 rate (the SIMT kernel's).  Returns the
+    full-shape row (timing, plain, bound, library): no PyTorch call
+    computes the SSD."""
+    for case in SSD_SERVE:
+        *shape, chunk = case
+        B, S, H, P, _, N = shape
+        args = ssd_inputs(*shape, dev, dtype=torch.bfloat16)
+        t = timed(lambda: ssd_chunked(*args, chunk=chunk), 20,
+                  kernels_a_call=3)
+        flops, nbytes = ssd_bound(B, S, H, P, N, chunk, 2)
+        b16, by = bound(flops, nbytes, peak_bf16)
+        b32, by32 = bound(flops, nbytes)
+        ctas = B * H * (S // chunk)  # pass (a); (c) has one a 64-row half
+        print(f"   K6 at S={S} (chunk {chunk}; B=1, H=80, P=64, G=1, N=128, "
+              f"bf16): {t.describe()}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB: bound {b16 * 1e3:.6f} ms ({by}, bf16 "
+              f"tensor cores; {b32 * 1e3:.6f} ms, {by32}, at the fp32 rate), "
+              f"K6 reaches {b16 * 1e3 / t.device:.3f} of it; grid: {ctas} "
+              f"CTAs in pass (a), {B * H * -(-P * N // 4 // 256)} in (b), "
+              f"{ctas * -(-chunk // 64)} in (c)")
+        if case == SSD_FULL:
+            row = (t, timed(lambda: ssd_chunked_plain(*args, chunk=chunk), 3),
+                   (b16, by), None)
+    return row
 
 
 def to_float32(tree):

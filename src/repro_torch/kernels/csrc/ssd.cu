@@ -39,12 +39,16 @@
 //     where dt and exp(cum_i) are applied (dt folded into the scores, and
 //     exp(cum_i) applied to C.h), a float32 rounding apart.
 // P and N must be multiples of 4.  At full width a B=1 prefill is 80 CTAs
-// on 132 SMs; splitting a head's chunks over CTAs (a two-pass state scan)
-// and tensor-core products are later work.
+// on 132 SMs.  This kernel runs float32 and mixed inputs, and bf16 ones
+// past the tensor-core kernel's P <= 64, N <= 128; bf16 x, B and C within
+// them take that kernel (ssd_sm90.cuh: three chunk-parallel passes on
+// wgmma).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "ssd_sm90.cuh"
 
 namespace {
 
@@ -302,4 +306,36 @@ extern "C" int ssd_chunked_launch(const void* x, const float* dt,
                                         H, P, G, N, chunk, s);
   return launch<float, float>(x, dt, A, Bm, Cm, y, state, batch, S, H, P, G,
                               N, chunk, s);
+}
+
+// The tensor-core path: x, B, C and y bf16 with P <= 64 and N <= 128, the
+// rest as ssd_chunked_launch; scratch: hs (batch, H, S / chunk, P, N) and
+// decay (batch, H, S / chunk) float32, hin (batch, H, S / chunk, 2, P, N)
+// bf16.  x, B and C 8-byte aligned.
+extern "C" int ssd_chunked_bf16_launch(const void* x, const float* dt,
+                                       const float* A, const void* Bm,
+                                       const void* Cm, void* y, float* state,
+                                       float* hs, float* decay, void* hin,
+                                       int batch, int S, int H, int P, int G,
+                                       int N, int chunk, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0 || H == 0) return 0;
+  if (P > ssd90::kMaxP || N > ssd90::kMaxN || P % 4 || N % 4 ||
+      chunk > ssd90::kQ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 64)
+    return ssd90::launch<1>(x, dt, A, Bm, Cm, y, state, hs, decay, hin,
+                            batch, S, H, P, G, N, chunk, s);
+  return ssd90::launch<2>(x, dt, A, Bm, Cm, y, state, hs, decay, hin, batch,
+                          S, H, P, G, N, chunk, s);
+}
+
+// shared memory a CTA of the tensor-core path's passes (a) and (c)
+extern "C" int ssd_chunked_bf16_smem_bytes(int N, int pass_c) {
+  if (N <= 64)
+    return pass_c ? ssd90::ScanSmem<1>::kBytes : ssd90::StateSmem<1>::kBytes;
+  return pass_c ? ssd90::ScanSmem<2>::kBytes : ssd90::StateSmem<2>::kBytes;
 }

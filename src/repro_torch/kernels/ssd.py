@@ -1,8 +1,12 @@
 """K6, the Mamba-2 SSD chunked forward: wrapper, plain version, launch count.
 
 Counterpart of ``repro.kernels.ssd.ssd_chunked`` (the Pallas TPU kernel
-``_ssd_kernel``).  The CUDA kernel is ``csrc/ssd.cu``; its header says what
-bounds it on the H100 and how its design answers that.
+``_ssd_kernel``).  Two CUDA kernels, picked by type and size in
+``ssd_chunked``: bf16 x, B and C with P <= 64 and N <= 128 (the Mamba-2
+serving path) run the tensor-core kernel of ``csrc/ssd_sm90.cuh``, three
+chunk-parallel passes on ``wgmma``; everything else the SIMT kernel of
+``csrc/ssd.cu``.  Their headers say what bounds them on the H100 and how
+their designs answer that.
 
 Shapes as in the reference: x (B, S, H, P), dt (B, S, H), A (H,), B and C
 (B, S, G, N), D (H,) or None; S a multiple of ``chunk = min(chunk, S)``,
@@ -20,6 +24,7 @@ from . import _build
 
 MAX_CHUNK = 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+TC_MAX_P, TC_MAX_N = 64, 128  # the tensor-core kernel's head and state sizes
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -105,12 +110,20 @@ def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
     return chunk
 
 
+def uses_tensor_cores(x: torch.Tensor, Bm: torch.Tensor) -> bool:
+    """Whether ``ssd_chunked`` runs the tensor-core kernel on the card: bf16
+    x, B and C (C is B's type) with P <= 64 and N <= 128."""
+    return (x.dtype == Bm.dtype == torch.bfloat16
+            and x.shape[3] <= TC_MAX_P and Bm.shape[3] <= TC_MAX_N)
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
                 chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the SSD chunked forward from a zero state.
 
     CPU tensors run the plain version; CUDA tensors launch K6 on the current
-    stream (counted in ``ssd_chunked.launches``), then add D outside it.
+    stream (counted in ``ssd_chunked.launches``, once a call, whichever
+    kernel runs), then add D outside it.
     """
     chunk = _check(x, dt, A, Bm, Cm, D, chunk)
     if x.device.type == "cpu":
@@ -125,17 +138,37 @@ def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
         raise ValueError(f"K6 takes P and N in multiples of 4, got P={P}, "
                          f"N={N}")
     lib = _build.library()
-    smem = lib.ssd_chunked_smem_bytes(P, N, chunk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"P={P}, N={N}, chunk={chunk} needs {smem} bytes of "
-                         f"shared memory a block, above {SMEM_LIMIT}")
     y = torch.empty_like(x)
     state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
-    err = lib.ssd_chunked_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N,
-        chunk, int(x.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if uses_tensor_cores(x, Bm):
+        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+            if t.data_ptr() % 8:
+                raise ValueError(f"{name} is not 8-byte aligned (the "
+                                 f"tensor-core kernel copies 8 or 16 bytes "
+                                 f"at a time)")
+        nc = S // chunk
+        hs = torch.empty(Bsz, H, nc, P, N, dtype=torch.float32,
+                         device=x.device)
+        decay = torch.empty(Bsz, H, nc, dtype=torch.float32, device=x.device)
+        hin = torch.empty(Bsz, H, nc, 2, P, N, dtype=torch.bfloat16,
+                          device=x.device)
+        err = lib.ssd_chunked_bf16_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), hs.data_ptr(),
+            decay.data_ptr(), hin.data_ptr(), Bsz, S, H, P, G, N, chunk,
+            x.device.index, stream)
+    else:
+        smem = lib.ssd_chunked_smem_bytes(P, N, chunk)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"P={P}, N={N}, chunk={chunk} needs {smem} "
+                             f"bytes of shared memory a block, above "
+                             f"{SMEM_LIMIT}")
+        err = lib.ssd_chunked_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G,
+            N, chunk, int(x.dtype == torch.bfloat16),
+            int(Bm.dtype == torch.bfloat16), x.device.index, stream)
     _build.check(err, "ssd_chunked")
     ssd_chunked.launches += 1
     return _with_skip(y, x, D), state

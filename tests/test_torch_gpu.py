@@ -25,8 +25,8 @@ from repro_torch.kernels import (taskbench_compute,  # noqa: E402
 from repro_torch.kernels import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
-from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
-                                     ssd_chunked_plain)
+from repro_torch.kernels.ssd import (_with_skip, ssd_chunked,  # noqa: E402
+                                     ssd_chunked_plain, uses_tensor_cores)
 
 COMPUTE_CASES = [(8, 12), (16, 40), (32, 7)]      # tests/test_kernels.py
 MEMORY_CASES = [(1024, 128, 7), (2048, 256, 0), (512, 512, 9)]
@@ -180,6 +180,11 @@ def test_k4_oversubscribed_ranks_raise(cuda):
 SSD_CASES = [(2, 128, 4, 16, 2, 8, 32), (1, 256, 8, 32, 1, 16, 64),
              (2, 64, 2, 64, 2, 32, 64), (1, 9, 2, 8, 1, 4, 1),
              (2, 74, 4, 16, 2, 8, 37), (1, 256, 80, 64, 1, 128, 128)]
+# the full-width Mamba-2 2.7B prefill at the lengths serving gives K6: 37
+# tokens (one chunk of 37: a single 64-row half, two 64-column boxes of N),
+# 128 (one chunk), 384, 1024 and 1536
+SSD_SERVE = [(1, S, 80, 64, 1, 128, min(S, 128))
+             for S in (37, 128, 384, 1024, 1536)]
 SSD_TOL = 1e-4  # float32 sums taken in another order than the plain version
 
 
@@ -213,19 +218,77 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
                       - 7)
 
 
-@pytest.mark.gpu
-def test_k6_bf16_is_within_one_ulp_of_plain(cuda):
-    """bf16 y: the float32 tolerance, then at most one bf16 ulp for the
-    rounding of the two float32 sums (near zero the float32 error of a sum
-    of large terms exceeds a bf16 ulp of the small result)."""
-    args = ssd_inputs(1, 256, 80, 64, 1, 128, cuda, dtype=torch.bfloat16)
-    y, h = ssd_chunked(*args, chunk=128)
-    y_p, h_p = ssd_chunked_plain(*args, chunk=128)
-    assert y.dtype == torch.bfloat16
-    ref = y_p.float()
+def within_one_ulp(y: torch.Tensor, y_plain: torch.Tensor) -> bool:
+    ref = y_plain.float()
     allowed = bf16_ulp(ref) + SSD_TOL * (1 + ref.abs())
-    assert bool(((y.float() - ref).abs() <= allowed).all())
+    return bool(((y.float() - ref).abs() <= allowed).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES + SSD_SERVE)
+def test_k6_bf16_is_within_one_ulp_of_plain(cuda, case):
+    """bf16 x, B and C (the tensor-core kernel): y within the float32
+    tolerance plus one bf16 ulp for the rounding of the two float32 sums
+    (near zero the float32 error of a sum of large terms exceeds a bf16 ulp
+    of the small result), the state within the float32 tolerance.  With D,
+    y is the kernel's y with D x added in float32 and rounded again outside
+    the kernel, as in the reference; the rule holds before that second
+    rounding (after it, one ulp of y can be several of a smaller y + D x)."""
+    *shape, chunk = case
+    args = ssd_inputs(*shape, cuda, dtype=torch.bfloat16)
+    D = torch.randn(shape[2]).to(cuda)
+    assert uses_tensor_cores(args[0], args[3])
+    n = ssd_chunked.launches
+    y, h = ssd_chunked(*args, chunk=chunk)
+    y_d, h_d = ssd_chunked(*args, D, chunk=chunk)
+    assert ssd_chunked.launches == n + 2
+    y_p, h_p = ssd_chunked_plain(*args, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and bool(y.isfinite().all())
+    assert within_one_ulp(y, y_p)
     torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+    assert torch.equal(y_d, _with_skip(y, args[0], D))
+    assert torch.equal(h_d, h)
+
+
+@pytest.mark.gpu
+def test_k6_bf16_ragged_prompt_through_ops(cuda):
+    args = ssd_inputs(1, 100, 4, 16, 2, 8, cuda, dtype=torch.bfloat16)
+    y, h = ssd_ops.ssd(*args, chunk=32)
+    y_p, h_p = ssd_ops.ssd(*args, chunk=32, impl="plain")
+    assert y.shape == (1, 100, 4, 16) and within_one_ulp(y, y_p)
+    torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(1, 128, 2, 128, 1, 16, 64),
+                                  (1, 128, 2, 32, 1, 256, 64)])
+def test_k6_bf16_past_the_tensor_core_sizes_runs_simt(cuda, case):
+    """P > 64 or N > 128 in bf16 takes the SIMT kernel, held to the same
+    rule."""
+    *shape, chunk = case
+    args = ssd_inputs(*shape, cuda, dtype=torch.bfloat16)
+    assert not uses_tensor_cores(args[0], args[3])
+    y, h = ssd_chunked(*args, chunk=chunk)
+    y_p, h_p = ssd_chunked_plain(*args, chunk=chunk)
+    assert within_one_ulp(y, y_p)
+    torch.testing.assert_close(h, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_k6_bf16_rejects_misaligned_views_and_launches_nothing(cuda):
+    """The tensor-core kernel copies 8 or 16 bytes at a time: x, B and C
+    8-byte aligned."""
+    x, dt, A, Bm, Cm = ssd_inputs(1, 64, 2, 16, 1, 8, cuda,
+                                  dtype=torch.bfloat16)
+    buf = torch.zeros(Bm.numel() + 4, dtype=torch.bfloat16, device=cuda)
+    view = buf[1:1 + Bm.numel()].view(Bm.shape)
+    assert view.is_contiguous() and view.data_ptr() % 8
+    n = ssd_chunked.launches
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        ssd_chunked(x, dt, A, view, Cm, chunk=64)
+    assert ssd_chunked.launches == n
+    ssd_chunked(x, dt, A, buf[4:4 + Bm.numel()].view(Bm.shape), Cm, chunk=64)
+    assert ssd_chunked.launches == n + 1
 
 
 @pytest.mark.gpu

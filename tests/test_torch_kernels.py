@@ -350,6 +350,7 @@ def test_sources_export_every_bound_function():
     ("fused.cu", "src/repro/backends/megakernel.py::_fused_kernel"),
     ("onesided.cu", "src/repro/backends/megakernel.py::_onesided_kernel"),
     ("ssd.cu", "src/repro/kernels/ssd.py::_ssd_kernel"),
+    ("ssd_sm90.cuh", "src/repro/kernels/ssd.py::_ssd_kernel"),
     ("flash_attention.cu",
      "src/repro/kernels/flash_attention.py::_flash_kernel"),
     ("flash_attention_sm90.cuh",

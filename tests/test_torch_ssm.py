@@ -212,6 +212,177 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert y.shape == (1, 37, 2, 8) and h.shape == (1, 2, 8, 4)
 
 
+# ------------------------------------- K6's bf16 kernel, emulated on the CPU
+# the card's K6 shapes (chip_smoke.py's SSD_CASES, then SSD_SERVE: the
+# full-width Mamba-2 2.7B prefill of 37, 128, 384, 1024 and 1536 tokens),
+# all in bf16
+CARD_CASES = SSD_CASES + [(1, S, 80, 64, 1, 128, min(S, 128))
+                          for S in (37, 128, 384, 1024, 1536)]
+CARD_TOL = 1e-4  # |y - y_plain| <= CARD_TOL (1 + |y_plain|) + a bf16 ulp
+
+
+def warp_scan_cumsum(la):
+    """Inclusive cumsum over dim -2 (a chunk of Q <= 128 rows) in the
+    order of ``ssd_sm90.cuh::chunk_cumsum``: 32 lanes sum four rows each in
+    order, a Hillis-Steele scan adds the lanes' totals, and each row adds
+    the total of the lanes before its own (every add rounded to float32)."""
+    Q = la.shape[-2]
+    pad = la.new_zeros(la.shape[:-2] + (128 - Q, la.shape[-1]))
+    v = torch.cat([la, pad], -2).unflatten(-2, (32, 4))
+    runs = [v[..., 0, :]]
+    for k in range(1, 4):
+        runs.append(runs[-1] + v[..., k, :])
+    v = torch.stack(runs, -2)
+    t = v[..., 3, :]
+    off = 1
+    while off < 32:
+        t = t + torch.nn.functional.pad(t, (0, 0, off, 0))[..., :32, :]
+        off *= 2
+    before = torch.nn.functional.pad(t, (0, 0, 1, 0))[..., :32, :]
+    return (before[..., None, :] + v).flatten(-3, -2)[..., :Q, :]
+
+
+def as_terms(v, terms):
+    """A float32 operand as the tensor cores take it: ``terms`` = 2 sums
+    bf16(v) and bf16(v - bf16(v)), 1 takes bf16(v) alone, None leaves v."""
+    if terms is None:
+        return v
+    hi = v.bfloat16().float()
+    return hi + (v - hi).bfloat16().float() if terms == 2 else hi
+
+
+def tensor_core_k6(x, dt, A, Bm, Cm, chunk, terms=(2, 2, 2)):
+    """The arithmetic of ``ssd_sm90.cuh`` in plain torch -> (y float32,
+    final state): cum by the warp scan; (a) local states x^T (B w) with
+    w = exp(cum_last - cum) dt; (b) h_in[c + 1] = exp(cum_last) h_in[c] +
+    local[c]; (c) y = (C h_in^T) exp(cum_i) + (C B^T exp(cum_i - cum_j)
+    dt_j [j <= i]) x.  Products of bf16 values are exact in float32; the
+    float32 operands, ``terms`` for (the scores, h_in, x w), go as two bf16
+    terms, one, or (None) as they are."""
+    t_s, t_h, t_w = terms
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc, Q = S // chunk, chunk
+    xf = x.float().reshape(Bsz, nc, Q, H, P)
+    dtf = dt.float().reshape(Bsz, nc, Q, H)
+    Bf = Bm.float().repeat_interleave(H // G, 2).reshape(Bsz, nc, Q, H, N)
+    Cf = Cm.float().repeat_interleave(H // G, 2).reshape(Bsz, nc, Q, H, N)
+    cum = warp_scan_cumsum(dtf * A.float())                  # (B, nc, Q, H)
+    last = cum[:, :, -1]
+    w = torch.exp(last[:, :, None] - cum) * dtf
+    local = torch.einsum("bcjhp,bcjhn->bchpn",
+                         as_terms(xf * w[..., None], t_w), Bf)
+    decay = torch.exp(last)
+    h = torch.zeros(Bsz, H, P, N)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c, :, None, None] * h + local[:, c]
+    h_in = torch.stack(h_in, 1)                              # (B, nc, H, P, N)
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    cumh = cum.transpose(2, 3)                               # (B, nc, H, Q)
+    seg = torch.where(tri, cumh[..., :, None] - cumh[..., None, :], 0.0)
+    s = torch.einsum("bcihn,bcjhn->bchij", Cf, Bf)
+    s = torch.where(tri, s * torch.exp(seg)
+                    * dtf.transpose(2, 3)[..., None, :], 0.0)
+    intra = torch.einsum("bchij,bcjhp->bcihp", as_terms(s, t_s), xf)
+    inter = torch.einsum("bcihn,bchpn->bcihp", Cf, as_terms(h_in, t_h))
+    y = inter * torch.exp(cum)[..., None] + intra
+    return y.reshape(Bsz, S, H, P), h
+
+
+def bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2 ** -126)))
+                      - 7)
+
+
+def bf16_inputs(B, S, H, P, G, N, seed=0):
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a)
+                           for a in ssd_inputs(B, S, H, P, G, N, seed))
+    return (x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
+            Cm.to(torch.bfloat16))
+
+
+def meets_card_tolerance(got, want):
+    """(y ok, state ok): a bf16 y within CARD_TOL (1 + |y_plain|) plus one
+    bf16 ulp, the float32 state within CARD_TOL (1 + |h_plain|)."""
+    (y, h), (y_p, h_p) = got, want
+    ref = y_p.float()
+    y_ok = ((y.to(torch.bfloat16).float() - ref).abs()
+            <= CARD_TOL * (1 + ref.abs()) + bf16_ulp(ref)).all()
+    h_ok = ((h - h_p).abs() <= CARD_TOL * (1 + h_p.abs())).all()
+    return bool(y_ok), bool(h_ok)
+
+
+# each float32 operand as one bf16 term, the other two as two
+ONE_TERM = {"scores": (1, 2, 2), "h_in": (2, 1, 2), "x w": (2, 2, 1)}
+
+
+@pytest.mark.parametrize("case", CARD_CASES + ["ragged"])
+def test_tensor_core_arithmetic_meets_the_card_tolerance(case, monkeypatch):
+    """Every float32 operand as two bf16 terms keeps y and the state within
+    the card's tolerance of ``ssd_chunked_plain`` on the same bf16 inputs,
+    at every card shape and at a ragged S = 100 through ``ops.ssd``; and
+    each of the three splits is needed: with that operand as one bf16 term
+    y or the state misses the tolerance at some shape (``test_each_split_
+    is_needed``)."""
+    if case == "ragged":  # ops.ssd pads S = 100 to chunks of 32
+        args = bf16_inputs(1, 100, 4, 16, 2, 8, seed=7)
+        want = tops.ssd(*args, chunk=32, impl="plain")
+        monkeypatch.setattr(tssd, "ssd_chunked_plain",
+                            lambda *a, chunk, **_: tensor_core_k6(*a[:5],
+                                                                  chunk))
+        got = tops.ssd(*args, chunk=32, impl="plain")
+        assert got[0].shape == (1, 100, 4, 16)
+    else:
+        *shape, chunk = case
+        args = bf16_inputs(*shape)
+        want = tssd.ssd_chunked_plain(*args, chunk=chunk)
+        got = tensor_core_k6(*args, chunk)
+    assert meets_card_tolerance(got, want) == (True, True)
+
+
+def test_each_split_is_needed():
+    """One bf16 term for the scores, for h_in or for x w misses the card's
+    tolerance (y or the state) at some card shape, where two terms meet it
+    (above)."""
+    for name, terms in ONE_TERM.items():
+        misses = []
+        for case in CARD_CASES[:5]:
+            *shape, chunk = case
+            args = bf16_inputs(*shape)
+            ok = meets_card_tolerance(
+                tensor_core_k6(*args, chunk, terms),
+                tssd.ssd_chunked_plain(*args, chunk=chunk))
+            if not all(ok):
+                misses.append(case)
+        assert misses, f"{name} as one bf16 term meets the tolerance"
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_chunk_parallel_passes_match_plain_and_reference(case):
+    """Passes (a)-(c) in float32 (no bf16 rounding; the warp scan's cumsum,
+    the chunk states, the state pass) give ``ssd_chunked_plain``'s y and
+    final state within 1e-4, and the reference's Pallas kernel's in
+    interpret mode within 1e-4 too."""
+    B, S, H, P, G, N, chunk = case
+    j, t = both(ssd_inputs(B, S, H, P, G, N, seed=8)[:5])
+    y, h = tensor_core_k6(*t, chunk, terms=(None, None, None))
+    y_p, h_p = tssd.ssd_chunked_plain(*t, chunk=chunk)
+    close(y, y_p, ORACLE_TOL)
+    close(h, h_p, ORACLE_TOL)
+    y_r, h_r = rops.ssd(*j, chunk=chunk, impl="interpret")
+    close(y, y_r, ORACLE_TOL)
+    close(h, h_r, ORACLE_TOL)
+
+
+def test_warp_scan_cumsum_is_an_inclusive_cumsum():
+    la = torch.from_numpy(np.random.RandomState(9).randn(3, 128, 2)
+                          .astype(np.float32))
+    for Q in (1, 37, 128):
+        close(warp_scan_cumsum(la[:, :Q]), torch.cumsum(la[:, :Q], 1), 1e-5)
+
+
 # ------------------------------------------------------ block and model
 @pytest.fixture(scope="module")
 def reduced_pair():
