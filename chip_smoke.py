@@ -16,7 +16,10 @@ raise on failure:
    shapes of ``tests/test_kernels.py`` and at the main paths' full-size
    shapes: K1, K2, K3 and K4 bitwise for the empty, compute and memory
    kinds, K3 and K4 compute_mxu within check_outputs' rtol 1e-5 / atol
-   1e-6; K4 on every pattern at 2, 4 and 8 ranks (ragged widths included)
+   1e-6; K3 at full size also with more tasks than its grid has CTAs
+   (nearest[radix=5] graphs stacked past ``taskbench_fused_blocks``, several
+   tasks a CTA a timestep); K4 on every pattern at 2, 4 and 8 ranks
+   (ragged widths included)
    and at full size on stencil (4 and 132 ranks), nearest[radix=5] (132),
    memory with 1 MiB of scratch per column (132) and spread[radix=5] (8
    ranks, puts to every rank); K6 (SSD) at the shapes of
@@ -38,7 +41,8 @@ raise on failure:
    stacked graphs, and one K4 launch a graph of a
    ``cuda-fused[comm=onesided]`` run; ``torch.profiler`` records at least
    one CUDA kernel, none but the expected kernel and no more than those
-   launches (it can miss whole launches, see ``timed``);
+   launches (it can miss whole launches, see ``timed``); the memsets with
+   which K3 and K4 zero their signal words are not kernels;
 5. the main paths at full size, each with the launch counts zeroed just
    before it and read just after: stencil / compute, width 132 (one task
    column per SM), height 1000, on ``torch-scan`` and ``cuda-fused``, one
@@ -681,6 +685,14 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         errs["K3"] = max(errs["K3"], e)
         print(f"   K3 full size {name} (W={WIDTH}, H={HEIGHT}): "
               f"max abs diff {e}")
+    # the grid-stride case: more tasks than CTAs, several a CTA a timestep
+    blocks = lib.taskbench_fused_blocks(1 << 20, 0)
+    stacked = blocks // WIDTH + 1
+    _, _, got, want = fused_pair(replicate(nearest, stacked))
+    e = bitwise(f"K3 full size {stacked} x nearest[radix=5]", got, want)
+    errs["K3"] = max(errs["K3"], e)
+    print(f"   K3 full size {stacked} x nearest[radix=5] ({stacked * WIDTH} "
+          f"tasks on a grid of {blocks} CTAs): max abs diff {e}")
     for kind in ("empty", "compute", "memory", "compute_mxu"):
         worst = 0.0
         for pat in pattern_names():
@@ -704,10 +716,10 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         e = bitwise(f"K4 full size {name} ranks={ranks}", got, want)
         errs["K4"] = max(errs["K4"], e)
         n_off = len(plan._onesided_offsets) if plan.a2a_cap else 0
-        inbox = ranks * HEIGHT * n_off * plan.a2a_cap * 5 * 4
+        inbox = ranks * HEIGHT * n_off * plan.a2a_cap * 5 * 8
         print(f"   K4 full size {name} ranks={ranks} (W={WIDTH}, H={HEIGHT}"
-              f", {n_off} ring offsets, cap {plan.a2a_cap}, inbox "
-              f"{inbox / 1e6:.3f} MB): max abs diff {e}")
+              f", {n_off} ring offsets, cap {plan.a2a_cap}, inbox of tagged "
+              f"words {inbox / 1e6:.3f} MB): max abs diff {e}")
     errs["K6"] = 0.0
     for case in SSD_CASES + (SSD_FULL,):
         *shape, chunk = case
@@ -883,9 +895,9 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
               f"bound {bs * 1e3:.6f} ms ({by}){lib_text}")
     (k3_ms, k3_s), (k4_ms, k4_s) = rows[2][1][:2], rows[3][1][:2]
     print(f"   same graph (stencil, W={WIDTH}, H={HEIGHT}): K3 {k3_ms:.6f} ms "
-          f"device ({k3_ms / HEIGHT * 1e3:.4f} us a timestep, grid barrier), "
+          f"device ({k3_ms / HEIGHT * 1e3:.4f} us a timestep, signal words), "
           f"K4 at {WIDTH} ranks {k4_ms:.6f} ms ({k4_ms / HEIGHT * 1e3:.4f} "
-          f"us a timestep, flags); stream {k3_s:.6f} / {k4_s:.6f} ms")
+          f"us a timestep, tagged puts); stream {k3_s:.6f} / {k4_s:.6f} ms")
     # the synchronization floor: the same graph with the empty body
     empty = stencil.with_kernel(KernelSpec(kind="empty"))
     etabs, ekw, _, _ = fused_pair([empty])

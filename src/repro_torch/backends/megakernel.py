@@ -7,8 +7,10 @@ the whole task graph batch — all timesteps × columns × concurrent graphs,
 dependencies included — runs as a *single* launch of K3, the cooperative
 CUDA kernel in ``kernels/csrc/fused.cu`` (its header gives the design).
 
-* The timestep loop is inside the kernel, with a grid-wide barrier
-  between timesteps; the payload wave is double-buffered in global memory.
+* The timestep loop is inside the kernel, with no barrier across CTAs: a
+  task publishes its combined checksum in a tagged 64-bit word of its own
+  (one per graph, timestep and column) and waits only on its
+  dependencies' words (``kernels/csrc/signal.cuh``).
 * Dependencies are read through the graph's dense dependency table
   (``TaskGraph.dependency_table``), graphs concatenated on the row axis.
 * The task body is the same as ``kernels.bodies.run_kernel_columns``, so
@@ -22,10 +24,11 @@ version.
 of ``pallas-fused[comm=onesided]``): columns are blocked over N ranks by
 the one-sided ``CommPlan`` (``dist.collectives``), and each graph runs as
 one launch of K4 (``kernels/csrc/onesided.cu``), in which every rank is a
-CTA that puts its dependency rows into its consumers' inboxes and raises a
-flag, with no barrier across ranks.  The reference runs one TPU chip per
-rank; on one card a rank is a CTA, so N is bounded by the CTAs the card
-holds at once (``taskbench_onesided_blocks``), not by a device count.
+CTA that puts its dependency rows into its consumers' inboxes as tagged
+words, each carrying its own readiness, with no barrier across ranks.  The
+reference runs one TPU chip per rank; on one card a rank is a CTA, so N is
+bounded by the CTAs the card holds at once (``taskbench_onesided_blocks``),
+not by a device count.
 ``taskbench_onesided`` and ``taskbench_onesided_plain`` are K4's wrapper
 and plain version.
 """
@@ -144,10 +147,12 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"no fused kernel for device {idx.device}")
     G, W, R = ngraphs, idx.shape[1], idx.shape[2]
     dev = idx.device
-    # torch.empty, never zeros: a fill would be a second launch, and the
-    # kernel writes the t = 0 wave itself
-    waves = torch.empty((2, G * W, payload_elems), dtype=torch.float32,
-                        device=dev)
+    # torch.empty, never zeros: a fill would be a second kernel.  The kernel
+    # writes every payload row, and zeroes its signal words itself (a
+    # memset on the stream)
+    wave = torch.empty((G * W, payload_elems), dtype=torch.float32,
+                       device=dev)
+    words = torch.empty((G * height, W), dtype=torch.int64, device=dev)
     stride = scratch_elems(kernel)
     scratch = (torch.empty((G * W, stride), dtype=torch.float32, device=dev)
                if stride else None)
@@ -155,14 +160,14 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
     lib = _build.library()
     err = lib.taskbench_fused_launch(
         idx.data_ptr(), mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
-        None if mxu_w is None else mxu_w.data_ptr(), waves.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), stride,
-        KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
+        None if mxu_w is None else mxu_w.data_ptr(), wave.data_ptr(),
+        words.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        stride, KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
         kernel.iterations, span, size, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "taskbench_fused")
     taskbench_fused.launches += 1
-    return waves[(height - 1) % 2]
+    return wave
 
 
 taskbench_fused.launches = 0
@@ -289,17 +294,16 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
     stride = scratch_elems(kernel)
     scratch = (torch.empty((ranks * local, stride), dtype=torch.float32,
                            device=dev) if stride else None)
+    # one (tag, value) word an element, zeroed by the launch's memset
     inbox = torch.empty((ranks, height, max(n_off * cap, 1), P),
-                        dtype=torch.float32, device=dev)
-    flags = torch.empty((ranks, height, max(n_off, 1)), dtype=torch.int32,
-                        device=dev)
+                        dtype=torch.int64, device=dev)
     span, size, _ = bodies.memory_geometry(kernel)
     err = lib.taskbench_onesided_launch(
         idx.data_ptr(), mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
         send_rows.data_ptr(), offsets.data_ptr(),
         None if mxu_w is None else mxu_w.data_ptr(), waves.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stride,
-        inbox.data_ptr(), flags.data_ptr(), KIND_CODES[kernel.kind], ranks,
+        inbox.data_ptr(), KIND_CODES[kernel.kind], ranks,
         height, local, R, P, n_off, cap, kernel.iterations, span, size,
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "taskbench_onesided")

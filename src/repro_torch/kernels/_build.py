@@ -38,12 +38,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "taskbench_compute_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "taskbench_memory_launch": ([_P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
-    "taskbench_fused_launch": ([_P, _P, _P, _P, _P, _P, _P, _L,
+    "taskbench_fused_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _L,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                _I),
     "taskbench_fused_blocks": ([_I, _I], _I),
     "taskbench_onesided_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
-                                   _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P], _I),
     "taskbench_onesided_blocks": ([_I], _I),
     "ssd_chunked_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

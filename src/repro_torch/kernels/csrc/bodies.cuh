@@ -69,16 +69,41 @@ __device__ __forceinline__ void memory_window(const float* in, float* out,
   }
 }
 
+// The table entries of one task: lane r of warp 0 holds dependency slot r
+// (r < 32; warp_combine loads slots past 32 itself), every thread holds the
+// base checksum and the duration.  They depend on nothing, so K3 and K4 load
+// a task's entries before they wait on its inputs, off the timestep chain.
+struct TaskEntries {
+  int dep, live, base, n;
+};
+
+__device__ __forceinline__ TaskEntries load_entries(
+    const int* idx, const int* mask, const int* base, const int* iters,
+    size_t row, int R, int max_iters) {
+  TaskEntries e{0, 0, base[row], min(max(iters[row], 0), max_iters)};
+  if (threadIdx.x < 32 && threadIdx.x < R) {
+    e.dep = idx[row * R + threadIdx.x];
+    e.live = mask[row * R + threadIdx.x];
+  }
+  return e;
+}
+
 // The dependency combine of one task, run by the 32 lanes of warp 0: the
-// sum mod 2^20 of value(idx[r]) over the live slots r < R, lane r taking
-// slots r, r+32, ...  Every partial sum stays below 2^21, so int32 holds it
-// before the mask.  The sum lands in lane 0.
+// sum mod 2^20 of value(idx[r]) over the live slots r < R of the task's row
+// (`idx`, `mask`), lane r taking slots r (from its entries), r+32, ...  Every
+// partial sum stays below 2^21, so int32 holds it before the mask.  The sum
+// lands in lane 0.
 template <class Value>
-__device__ __forceinline__ int warp_combine(const int* idx, const int* mask,
+__device__ __forceinline__ int warp_combine(const TaskEntries& e,
+                                            const int* idx, const int* mask,
                                             int R, Value value) {
   int part = 0;
-  for (int r = threadIdx.x; r < R; r += 32)
-    if (mask[r] != 0) part = (part + value(idx[r])) & kChecksumMask;
+  if (threadIdx.x < R && e.live != 0)
+    part = (part + value(e.dep)) & kChecksumMask;
+  for (int r = threadIdx.x + 32; r < R; r += 32) {
+    const int j = idx[r];
+    if (mask[r] != 0) part = (part + value(j)) & kChecksumMask;
+  }
   for (int off = 16; off > 0; off >>= 1)
     part = (part + __shfl_down_sync(0xffffffffu, part, off)) & kChecksumMask;
   return part;

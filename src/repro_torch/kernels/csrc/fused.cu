@@ -3,35 +3,52 @@
 // Replaces src/repro/backends/megakernel.py::_fused_kernel (the Pallas TPU
 // kernel built by MegakernelBackend._call).  One launch runs G stacked task
 // graphs for all H timesteps.  Each timestep, each (graph, column) task
-//   1. sums the slot-3 values of its dependencies in the previous wave
-//      (at most R slots of the dense idx/mask table), mod 2^20;
+//   1. sums the combined checksums of its dependencies at t-1 (at most R
+//      slots of the dense idx/mask table), mod 2^20;
 //   2. adds its base checksum;
 //   3. runs the task body (empty / compute / compute_mxu / memory) seeded
 //      with acc * 2^-46;
-//   4. writes its payload row [t, i, base, combined, result, result...].
+//   4. writes its payload row [t, i, base, combined, result, result...]
+//      and publishes its combined checksum in its (t, task) signal word.
 //
 // Bound on the H100: the timestep chain.  The work of one timestep is small
 // (132 columns of a compute task are ~0.3 MFLOP per iteration), so at fine
-// granularity the limit is the latency of one grid-wide barrier plus one
-// dependent table and payload read per timestep, not flops or bytes.
-// Design: one persistent cooperative launch with the timestep loop inside
-// the kernel, a grid.sync() between timesteps, the grid sized by occupancy
-// (blocks per SM x SMs, capped at the G*W tasks) and the tasks of a timestep
-// spread over the blocks in a grid-stride loop, so G*W has no limit.  The
-// payload wave is double-buffered in global memory: timestep t reads buffer
-// (t+1)&1 and writes buffer t&1; the kernel writes the t = 0 wave itself.
-// The dependency combine is native int32 math done by one warp (the
-// reference's f32 one-hot select-sum exists only because Mosaic lacks
-// integer reductions; the values are the same).  Task bodies keep their
-// state in a per-task global scratch row the wrapper allocates, so the
-// compiler can neither merge the identical tile values nor drop the values
-// that do not reach the payload.  compute_mxu is a plain SIMT fp32 loop
-// over the 128 x 128 x 128 product: no tensor cores, no TF32.
-#include <cooperative_groups.h>
-
+// granularity the limit is the latency with which a task learns that its
+// dependencies are done, not flops or bytes.  Design: one persistent
+// cooperative launch with the timestep loop inside the kernel, the grid
+// sized by occupancy (blocks per SM x SMs, capped at the G*W tasks) and the
+// tasks of a timestep spread over the blocks in a grid-stride loop, so G*W
+// has no limit.  There is no barrier across CTAs: a task waits only on the
+// words of its own dependencies (signal.cuh).  Each (graph, timestep, task)
+// has one 64-bit word, tag t+1 over the combined checksum, written by one
+// relaxed store when the task is done: (G, H, W) words, zeroed by a memset
+// on the launch's stream.  A consumer's lane r polls the t-1 word of
+// dependency r until its tag is t and takes the value from the same word,
+// so one L2 trip carries both the signal and the data, with no fence.  The
+// table entries of a task depend on nothing: a CTA loads those of its next
+// task before it waits on the current one's inputs.
+// A word is written once per launch, so a task that runs ahead never
+// overwrites a word a slow consumer has yet to read, whatever the pattern.
+//
+// Why the waits cannot deadlock: every CTA is resident at once (the launch
+// is cooperative, and fails rather than runs when the grid does not fit),
+// and each CTA walks t outermost, finishing all its tasks of t-1 before any
+// task of t.  By induction on t: every t = 0 task waits on nothing; if every
+// word of t-1 is eventually written, every task of t eventually has its
+// inputs, and a CTA blocked in a task of t has already written all its
+// words of t-1, so it holds back no task of t.  Every wait is still bounded
+// by the launch's deadlock guard, which traps (signal.cuh).
+//
+// The payload rows are written, never read, inside the kernel: one (G*W, P)
+// buffer holds the last wave.  The dependency combine is native int32 math
+// done by one warp (the reference's f32 one-hot select-sum exists only
+// because Mosaic lacks integer reductions; the values are the same).  Task
+// bodies keep their state in a per-task global scratch row the wrapper
+// allocates, so the compiler can neither merge the identical tile values nor
+// drop the values that do not reach the payload.  compute_mxu is a plain
+// SIMT fp32 loop over the 128 x 128 x 128 product: no tensor cores, no TF32.
 #include "bodies.cuh"
-
-namespace cg = cooperative_groups;
+#include "signal.cuh"
 
 namespace {
 
@@ -43,36 +60,46 @@ struct FusedArgs {
   const int* iters;   // (G*H, W) task durations
   const int* base;    // (G*H, W) base checksums
   const float* mxu_w;  // (128, 128), compute_mxu only
-  float* waves;       // (2, G*W, P) double-buffered payload wave
+  float* wave;        // (G*W, P) payload rows, the last wave at the end
+  unsigned long long* words;  // (G*H, W) signal words, zero at launch
   float* scratch;     // (G*W, scratch_stride) per-task body state
   long long scratch_stride;
   int kind, G, H, W, R, P, max_iters, span, size;
+  unsigned long long wait_timeout_ns;  // deadlock guard (signal.cuh)
 };
 
 __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
   using namespace taskbench;
-  cg::grid_group grid = cg::this_grid();
   __shared__ int s_acc;
   const int tasks = a.G * a.W;
-  const size_t wave = static_cast<size_t>(tasks) * a.P;
+
+  const auto row_of = [&](int t, int task) {
+    return (static_cast<size_t>(task / a.W) * a.H + t) * a.W + task % a.W;
+  };
+  const auto entries_of = [&](int t, int task) {
+    return load_entries(a.idx, a.mask, a.base, a.iters, row_of(t, task), a.R,
+                        a.max_iters);
+  };
+  // the table entries of this CTA's next task, loaded one task ahead
+  TaskEntries next = entries_of(0, blockIdx.x);  // the grid is <= tasks
 
   for (int t = 0; t < a.H; ++t) {
-    const float* prev = a.waves + static_cast<size_t>((t + 1) & 1) * wave;
-    float* cur = a.waves + static_cast<size_t>(t & 1) * wave;
     for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
-      const int g = task / a.W;
       const int i = task % a.W;
-      const size_t row = (static_cast<size_t>(g) * a.H + t) * a.W + i;
+      const size_t row = row_of(t, task);
+      const TaskEntries e = next;
+      if (task + gridDim.x < tasks) next = entries_of(t, task + gridDim.x);
+      else if (t + 1 < a.H) next = entries_of(t + 1, blockIdx.x);
 
-      // 1. dependency combine (bodies.cuh); at t = 0 there are no
-      // dependencies and no previous wave to read
+      // 1. dependency combine (bodies.cuh): lane r waits on the t-1 word of
+      // dependency r, (row - i - W) + j; at t = 0 there is none
       if (threadIdx.x < 32) {
-        const float* prev_g = prev + static_cast<size_t>(g) * a.W * a.P;
+        const unsigned long long* prev = a.words + (row - i);
         const int part = warp_combine(
-            a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
+            e, a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
             [&](int j) {
               return static_cast<int>(
-                  prev_g[static_cast<size_t>(j) * a.P + 3]);
+                  wait_word(prev - a.W + j, t, a.wait_timeout_ns));
             });
         if (threadIdx.x == 0) s_acc = part;
       }
@@ -80,20 +107,20 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       const int acc = s_acc;
 
       // 2.-3. checksum and task body
-      const int base = a.base[row];
+      const int base = e.base, n = e.n;
       const int combined = (base + acc) & kChecksumMask;
-      const int n = min(max(a.iters[row], 0), a.max_iters);
       const float seed = __fmul_rn(static_cast<float>(acc), kFoldBlock);
       float* scr = a.scratch + static_cast<size_t>(task) * a.scratch_stride;
       const float res = run_body<kThreads>(a.kind, seed, n, scr, a.mxu_w,
                                            a.span, a.size);
 
-      // 4. the payload row; slot 1 is the column within its graph
-      write_payload<kThreads>(cur + static_cast<size_t>(task) * a.P, a.P, t,
-                              i, base, combined, res);
+      // 4. the payload row (slot 1 is the column within its graph), then
+      // the signal: the body has ended in every thread (run_body)
+      write_payload<kThreads>(a.wave + static_cast<size_t>(task) * a.P, a.P,
+                              t, i, base, combined, res);
+      if (threadIdx.x == 0) store_word(a.words + row, t + 1, combined);
       __syncthreads();  // s_acc is rewritten by the next task
     }
-    grid.sync();
   }
 }
 
@@ -125,22 +152,31 @@ extern "C" int taskbench_fused_blocks(int tasks, int device) {
 
 extern "C" int taskbench_fused_launch(
     const int* idx, const int* mask, const int* iters, const int* base,
-    const float* mxu_w, float* waves, float* scratch,
-    long long scratch_stride, int kind, int G, int H, int W, int R, int P,
-    int max_iters, int span, int size, int device, void* stream) {
+    const float* mxu_w, float* wave, unsigned long long* words,
+    float* scratch, long long scratch_stride, int kind, int G, int H, int W,
+    int R, int P, int max_iters, int span, int size, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tasks = G * W;
   if (tasks == 0 || H == 0) return 0;
   const int blocks = blocks_for(tasks, device, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FusedArgs args{idx,   mask,    iters, base, mxu_w,     waves, scratch,
-                 scratch_stride, kind,  G,    H,         W,     R,
-                 P,     max_iters, span, size};
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(words, 0,
+                        static_cast<size_t>(tasks) * H * sizeof(*words), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_cta = (tasks + blocks - 1) / blocks;
+  FusedArgs args{idx,     mask,  iters, base,     mxu_w, wave, words,
+                 scratch, scratch_stride, kind,  G,    H,     W,
+                 R,       P,     max_iters, span, size,
+                 taskbench::wait_timeout_ns(kind, H, per_cta, max_iters,
+                                            span, size)};
   void* params[] = {&args};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel),
                                     dim3(blocks), dim3(kThreads), params, 0,
-                                    static_cast<cudaStream_t>(stream));
+                                    s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

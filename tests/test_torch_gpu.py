@@ -16,7 +16,7 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     MegakernelBackend, onesided_tables_from_numpy, tables_from_numpy,
     taskbench_fused, taskbench_fused_plain, taskbench_onesided,
     taskbench_onesided_plain)
-from repro_torch.core import make_graph, replicate  # noqa: E402
+from repro_torch.core import make_graph, pattern_names, replicate  # noqa: E402
 from repro_torch.dist import plan_comm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (taskbench_compute,  # noqa: E402
@@ -173,6 +173,52 @@ def test_k4_oversubscribed_ranks_raise(cuda):
     g = make_graph(width=limit + 1, height=2, iterations=1)
     with pytest.raises(RuntimeError, match="co-resident"):
         get_backend(f"cuda-fused[comm=onesided,ranks={limit + 1}]").run([g])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["stencil", "random", "spread"])
+def test_k3_grid_stride_matches_plain(cuda, pattern):
+    """More tasks than K3's grid has CTAs: each CTA runs several tasks a
+    timestep, t outermost, the order the dependency waits rely on.  At
+    width 200 the random pattern has more than 32 dependency slots, which
+    warp_combine loads itself past its lanes' first ones."""
+    blocks = _build.library().taskbench_fused_blocks(1 << 20, cuda.index or 0)
+    g = make_graph(width=200, height=8, pattern=pattern, kernel="compute",
+                   iterations=5, imbalance=0.5,
+                   **({"radix": 5} if pattern == "spread" else {}))
+    graphs = replicate(g, blocks // g.width + 1)
+    assert len(graphs) * g.width > blocks
+    tabs = tables_from_numpy(MegakernelBackend._tables(
+        graphs, max(1, g.max_radix())), cuda)
+    kw = dict(kernel=g.kernel, ngraphs=len(graphs), height=g.height,
+              payload_elems=g.payload_elems)
+    assert torch.equal(taskbench_fused(*tabs, **kw),
+                       taskbench_fused_plain(*tabs, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", pattern_names())
+def test_k3_k4_run_ahead_under_imbalance(cuda, pattern):
+    """Task durations of 1 to 64 iterations (imbalance 1.0) over 64
+    timesteps, so short tasks run many steps ahead of their neighbours
+    wherever the pattern lets them; K3 and K4 stay bitwise with their plain
+    versions."""
+    g = make_graph(width=16, height=64, pattern=pattern, kernel="compute",
+                   iterations=64, imbalance=1.0,
+                   **({"radix": 3} if pattern in ("nearest", "spread")
+                      else {}))
+    kw = dict(kernel=g.kernel, height=g.height,
+              payload_elems=g.payload_elems)
+    for graphs in ([g], replicate(g, 3)):
+        tabs = tables_from_numpy(MegakernelBackend._tables(
+            graphs, max(1, g.max_radix())), cuda)
+        assert torch.equal(
+            taskbench_fused(*tabs, ngraphs=len(graphs), **kw),
+            taskbench_fused_plain(*tabs, ngraphs=len(graphs), **kw))
+    for ranks in (4, 16):
+        tabs = onesided_tables(g, ranks, cuda)
+        assert torch.equal(taskbench_onesided(*tabs, **kw),
+                           taskbench_onesided_plain(*tabs, **kw)), ranks
 
 
 # B, S, H, P, G, N, chunk: tests/test_kernels.py's SSD cases, chunk 1 and 37,
