@@ -42,17 +42,24 @@ raise on failure:
    ``cuda-fused[comm=onesided]`` run; ``torch.profiler`` records at least
    one CUDA kernel, none but the expected kernel and no more than those
    launches (it can miss whole launches, see ``timed``); the memsets with
-   which K3 and K4 zero their signal words are not kernels;
+   which K3 and K4 zero their signal words are not kernels.  For
+   ``cuda-graph``, for 1 graph and for 4 stacked graphs: the capture
+   records HEIGHT K1 nodes a program (the counters count at capture), and
+   over the runs the profiler's host side records one ``cudaGraphLaunch``
+   a run and no kernel launch, its device side K1 kernels and no more than
+   those nodes;
 5. the main paths at full size, each with the launch counts zeroed just
    before it and read just after: stencil / compute, width 132 (one task
-   column per SM), height 1000, on ``torch-scan`` and ``cuda-fused``, one
-   graph and ``run_many`` of 4 concurrent nearest[radix=5] graphs, plus the
-   memory kind with 1 MiB of scratch per column; and the stencil and memory
-   graphs on ``cuda-fused[comm=onesided,ranks=132]`` (one rank per column);
-   every output checked against the numpy oracle and all backends bitwise
-   equal;
+   column per SM), height 1000, on ``torch-scan``, ``cuda-graph`` and
+   ``cuda-fused``, one graph and ``run_many`` of 4 concurrent
+   nearest[radix=5] graphs, plus the memory kind with 1 MiB of scratch per
+   column; and the stencil and memory graphs on
+   ``cuda-fused[comm=onesided,ranks=132]`` (one rank per column); every
+   output checked against the numpy oracle and all backends bitwise equal;
+   ``cuda-graph``'s capture and instantiation times, its graph pool, its
+   K1/K2 nodes and its first and later run walls printed;
 6. METG on the card: ``run_scenario`` with the wall clock over iterations
-   4096 -> 1 for the three backends;
+   4096 -> 1 for the four backends;
 7. the serving path: ``mamba2-2.7b`` at full width (64 layers, bf16,
    random weights from seed 0) served by ``ServeEngine(batch_slots=4,
    chunk_size=8)`` on six requests, the launch counts zeroed just before
@@ -73,8 +80,12 @@ raise on failure:
    prompts alone.
 
 The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
-gives it (SSD_SERVE), each pass apart.  The line before the last lists the
-kernels with their launches on the main path, errors, times, bounds and
+gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
+``cuda-graph`` stencil run beside K1 alone; an empty kernel with K1's grid
+(the launch floor K1's bound leaves out) alone and as a graph node; and the
+replayed run's device time and wall a timestep beside ``torch-scan``'s wall.
+The line before the last lists the kernels with their launches on the main
+path (and the path they were counted on), errors, times, bounds and
 (K5) the time of one library call for the same function; for K5 and K6,
 whose main paths are bf16, the bf16 kernel's (K6's summed over its three
 passes, its bound at the bf16 tensor-core peak).  The
@@ -132,6 +143,8 @@ MEM_SCRATCH = 1 << 20
 MXU_RTOL, MXU_ATOL = 1e-5, 1e-6
 ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
 PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
+GRAPH_NODES = 200  # empty kernels in the graph that times one as a node
+WALL_RUNS = 5  # runs of cuda-graph and torch-scan, in turns, for the walls
 PROFILE_WINDOWS = 10  # ``timed``: 1 + the windows it may rerun when one
 # misses kernels or disagrees with the others
 TIMED_WINDOWS = 3  # profiled windows whose median ``timed`` reports; for a
@@ -215,11 +228,21 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def device_kernels(prof) -> list:
-    """The CUDA kernels a ``torch.profiler`` run recorded (no copies)."""
+def device_kernels(prof, only: str = "") -> list:
+    """The CUDA kernels a ``torch.profiler`` run recorded (no copies), those
+    whose name holds ``only`` where it is given."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+            and not e.name.startswith(("Memcpy", "Memset"))
+            and only in e.name]
+
+
+def host_calls(prof, what: str) -> list:
+    """The host-side events (CUDA API calls among them) whose name holds
+    ``what``."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and what in e.name]
 
 
 class Timing(NamedTuple):
@@ -248,15 +271,16 @@ class Timing(NamedTuple):
                 f"ms, memsets {self.memset:.6f} ms a call{parts})")
 
 
-def profiled(fn, reps: int):
+def profiled(fn, reps: int, only: str = ""):
     """One profiled window of ``reps`` calls: the profiler and the CUDA
-    kernels it recorded, by name, each with its durations in us."""
+    kernels it recorded (whose name holds ``only``), by name, each with its
+    durations in us."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in device_kernels(prof):
+    for e in device_kernels(prof, only):
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return prof, by_name
 
@@ -270,11 +294,12 @@ def agreeing(readings: list, n: int):
     return min(groups, key=lambda g: g[-1] / g[0], default=None)
 
 
-def timed(fn, reps: int, kernels_a_call: int = 0) -> Timing:
+def timed(fn, reps: int, kernels_a_call: int = 0, only: str = "") -> Timing:
     """Times a call of ``fn`` over ``reps`` back-to-back calls, after one
     warm call: under ``torch.profiler``, then with CUDA events alone
     (stream ms, which also counts the gaps where the host has not issued
-    the next launch yet).
+    the next launch yet).  With ``only``, the profiler's readings keep the
+    kernels whose name holds it (K1's nodes among a graph replay's).
 
     Device ms is the profiler's kernel time a call.  The profiler on the
     H100 does not record every launch: some windows miss whole launches of
@@ -313,7 +338,7 @@ def timed(fn, reps: int, kernels_a_call: int = 0) -> Timing:
                 f"{[r[0] / 1e3 for r in runs]} ms lie within "
                 f"{WINDOW_SPREAD:.0%} of one another")
         windows += 1
-        prof, by_name = profiled(fn, reps)
+        prof, by_name = profiled(fn, reps, only)
         if not by_name or len(by_name) < kernels_a_call:
             continue
         if kernels_a_call and len(by_name) != kernels_a_call:
@@ -328,7 +353,7 @@ def timed(fn, reps: int, kernels_a_call: int = 0) -> Timing:
     group = agreeing([r[0] for r in runs], TIMED_WINDOWS)
     median = (group or sorted(r[0] for r in runs))[TIMED_WINDOWS // 2]
     device, prof, by_name = next(r for r in runs if r[0] == median)
-    kernels = device_kernels(prof)
+    kernels = device_kernels(prof, only)
     memsets = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name.startswith("Memset")]
@@ -769,7 +794,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
 
     # -- 4. the structural pin -----------------------------------------
     t0 = phase("4. one CUDA kernel per cuda-fused run, one per graph of a "
-               "one-sided run (torch.profiler)")
+               "one-sided run, one graph launch per cuda-graph run "
+               "(torch.profiler)")
     fused = get_backend("cuda-fused")
     onesided = get_backend(ONESIDED)
     for label, be, counter, per_graph, key in (
@@ -799,37 +825,102 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
             if counted != want:
                 raise AssertionError(f"expected {want} launch(es), counted "
                                      f"{counted}")
+    captured = get_backend("cuda-graph")
+    for graphs in ([stencil], replicate(stencil, 4)):
+        runner = captured.prepare_many(graphs)
+        nodes = runner.program.nodes
+        runner()
+        before = taskbench_compute.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PIN_RUNS):
+                runner()
+        graph_launches = host_calls(prof, "cudaGraphLaunch")
+        kernel_launches = host_calls(prof, "LaunchKernel")
+        k1 = device_kernels(prof, "compute_kernel")
+        print(f"   cuda-graph, {len(graphs)} graph(s): captured K1/K2 nodes "
+              f"{nodes}; {PIN_RUNS} runs: host {len(graph_launches)} "
+              f"cudaGraphLaunch, {len(kernel_launches)} kernel launches; "
+              f"device {len(device_kernels(prof))} CUDA kernels, {len(k1)} "
+              f"K1 {sorted({e.name for e in k1})}; launch counter "
+              f"+{taskbench_compute.launches - before}")
+        if nodes != {"taskbench_compute": HEIGHT, "taskbench_memory": 0}:
+            raise AssertionError(f"expected {HEIGHT} K1 nodes captured a "
+                                 f"program, got {nodes}")
+        if len(graph_launches) != PIN_RUNS or kernel_launches:
+            raise AssertionError(f"expected one cudaGraphLaunch a run and no "
+                                 f"kernel launch from the host, got "
+                                 f"{graph_launches} and {kernel_launches}")
+        if not 1 <= len(k1) <= HEIGHT * PIN_RUNS:
+            raise AssertionError(f"expected 1 to {HEIGHT * PIN_RUNS} K1 "
+                                 f"kernels on the device, got {len(k1)}")
+        if taskbench_compute.launches != before:
+            raise AssertionError("a replay launched K1 through its wrapper")
+        del runner
     done(t0)
 
     # -- 5. the main paths at full size --------------------------------
     t0 = phase(f"5. main paths: W={WIDTH}, H={HEIGHT}, torch-scan, "
-               f"cuda-fused, {ONESIDED}")
+               f"cuda-graph, cuda-fused, {ONESIDED}")
     scan = get_backend("torch-scan")
     counters = {"K1": taskbench_compute, "K2": taskbench_memory,
                 "K3": taskbench_fused, "K4": taskbench_onesided,
                 "K5": flash_attention, "K6": ssd_chunked}
+    # the path whose launches the kernels line reports for each kernel
+    launches_on = {"K1": "torch-scan", "K2": "torch-scan", "K3": "cuda-fused",
+                   "K4": ONESIDED, "K5": f"{GEMMA.model} serving",
+                   "K6": f"{MAMBA.model} serving"}
     cases = (("stencil", "stencil", [stencil]),
              ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
              ("memory 1 MiB", "memory", [memory]))
     paths = (("torch-scan", scan, ("K1", "K2"), cases),
+             ("cuda-graph", captured, ("K1", "K2"), cases),
              ("cuda-fused", fused, ("K3",), cases),
              (ONESIDED, onesided, ("K4",), (cases[0], cases[2])))
     outs, launches = {}, {}
     for be_name, be, path_kernels, path_cases in paths:
         for fn in counters.values():
             fn.launches = 0
-        for label, _, graphs in path_cases:
+        for label, key, graphs in path_cases:
             t1 = time.perf_counter()
-            outs[label, be_name] = be.run_many(graphs)
-            print(f"   {label} on {be_name}: "
-                  f"{(time.perf_counter() - t1) * 1e3:.3f} ms (first run)")
+            runner = be.prepare_many(graphs)
+            t2 = time.perf_counter()
+            outs[label, be_name] = runner()
+            t3 = time.perf_counter()
+            print(f"   {label} on {be_name}: prepare {(t2 - t1) * 1e3:.3f} ms"
+                  f", first run {(t3 - t2) * 1e3:.3f} ms")
+            if be is captured:
+                program = runner.program
+                again = runner()
+                later = time.perf_counter() - t3
+                kernel = ("taskbench_memory" if key == "memory"
+                          else "taskbench_compute")
+                print(f"     later run {later * 1e3:.3f} ms; captured "
+                      f"{program.nodes} kernel nodes; capture "
+                      f"{program.capture_s * 1e3:.3f} ms, instantiation "
+                      f"{program.instantiate_s * 1e3:.3f} ms; graph pool "
+                      f"{program.pool_bytes / 2**20:.3f} MiB")
+                if program.nodes[kernel] != HEIGHT:
+                    raise AssertionError(f"{label}: expected {HEIGHT} "
+                                         f"{kernel} nodes, captured "
+                                         f"{program.nodes}")
+                if any(not np.array_equal(a, b)
+                       for a, b in zip(again, outs[label, be_name])):
+                    raise AssertionError(f"{label}: a later replay gave "
+                                         f"other outputs")
+                if key == "stencil":
+                    stencil_graph = runner
+            del runner
         counts = {k: fn.launches for k, fn in counters.items()}
-        print(f"   launches on the {be_name} path: {counts}")
+        print(f"   launches on the {be_name} path: {counts}"
+              + (" (eager warm-up launches and captured nodes; a replay "
+                 "counts none)" if be is captured else ""))
         for k in path_kernels:
             if counts[k] == 0:
                 raise AssertionError(f"{k} was never launched on the "
                                      f"{be_name} path")
-            launches[k] = counts[k]
+            if launches_on[k] == be_name:
+                launches[k] = counts[k]
     for label, key, graphs in cases:
         ref = oracles[key].result()
         names = [p[0] for p in paths if (label, p[0]) in outs]
@@ -915,6 +1006,10 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   K4 at 4 ranks ({WIDTH // 4} tasks a CTA a timestep): "
           f"{k4r4.device / HEIGHT * 1e3:.4f} us a timestep, "
           f"{k4r4.describe()}")
+    graph_times(stencil_graph, scan.prepare_many([stencil]),
+                lambda: taskbench_compute(tiles, its, MAIN_ITERS), rows[0][1],
+                rows[0][3][0])
+    del stencil_graph
     print(f"   ({card})")
     for fn in counters.values():
         fn.launches = 0  # timing launches are not main-path launches
@@ -923,7 +1018,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     # -- 6. METG on the card --------------------------------------------
     t0 = phase("6. METG: stencil/compute W=132 H=1000, iterations 4096 -> 1")
     results = {}
-    for be_name in ("cuda-fused", ONESIDED, "torch-scan"):
+    for be_name in ("cuda-fused", ONESIDED, "cuda-graph", "torch-scan"):
         spec = ScenarioSpec(
             name=f"metg.{be_name}.stencil", backend=be_name,
             pattern="stencil", kernel="compute", width=WIDTH, height=HEIGHT,
@@ -942,7 +1037,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     common = max(r.peak_rate for r in results.values())
     for be_name, res in results.items():
         m = compute_metg(res.points, peak_rate=common).metg
-        print(f"   {be_name} against the best rate of the three "
+        print(f"   {be_name} against the best rate of the four "
               f"({common:.6e} FLOP/s): METG {m * 1e6 if m else None} us")
     print(f"   ({card})")
     done(t0)
@@ -969,10 +1064,77 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
+             "launches_on": launches_on[k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device}
             for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
+
+
+def graph_times(runner, scan_runner, k1_call, k1_alone: Timing,
+                k1_bound: float):
+    """K1 as a node of the replayed ``cuda-graph`` stencil run (the median
+    of profiled windows, as ``timed`` takes it) beside K1 alone and beside
+    K1 as a node of a graph of GRAPH_NODES K1 launches; an empty kernel with
+    K1's grid alone and as a node of such a graph, the launch floor K1's
+    bytes bound leaves out; the replayed run's device time a timestep and
+    its kernels by time; its wall a timestep (replay and the copy to
+    numpy, host clock) beside ``torch-scan``'s, WALL_RUNS runs each in
+    turns."""
+    replay = runner.program.graph.replay
+    node = timed(replay, 1, kernels_a_call=1, only="compute_kernel")
+    step = timed(replay, 2)
+    lib = _build.library()
+
+    def empty():
+        _build.check(lib.taskbench_empty_launch(
+            WIDTH, torch.cuda.current_device(),
+            torch.cuda.current_stream().cuda_stream), "taskbench_empty")
+
+    def as_nodes(fn) -> Timing:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_NODES):
+                fn()
+        return timed(graph.replay, 1, kernels_a_call=1)
+
+    alone = timed(empty, GRAPH_NODES, kernels_a_call=1)
+    empty_node = as_nodes(empty)
+    k1_node = as_nodes(k1_call)
+    _, by_name = profiled(replay, 1)
+    walls = {"cuda-graph": [], "torch-scan": []}
+    for _ in range(WALL_RUNS):
+        for name, run in (("cuda-graph", runner), ("torch-scan", scan_runner)):
+            t = time.perf_counter()
+            run()
+            walls[name].append((time.perf_counter() - t) / HEIGHT * 1e6)
+    print(f"   K1 as a node of the replayed cuda-graph stencil run: "
+          f"{node.device * 1e3:.6f} us ({node.describe()}); as a node of a "
+          f"{GRAPH_NODES}-node graph of K1 {k1_node.device * 1e3:.6f} us "
+          f"({k1_node.stream / GRAPH_NODES * 1e3:.6f} us a node on the "
+          f"stream; {k1_node.describe()}); K1 alone "
+          f"{k1_alone.device * 1e3:.6f} us; bound {k1_bound * 1e6:.6f} us")
+    print(f"   empty kernel with K1's grid ({WIDTH} CTAs of 256 threads): "
+          f"alone {alone.device * 1e3:.6f} us ({alone.describe()}); as a node "
+          f"of a {GRAPH_NODES}-node graph {empty_node.device * 1e3:.6f} us "
+          f"({empty_node.describe()}), "
+          f"{empty_node.stream / GRAPH_NODES * 1e3:.6f} us a node on the "
+          f"stream")
+    print(f"   replayed cuda-graph stencil run: "
+          f"{step.recorded / step.reps / HEIGHT:.3f} kernels a timestep, "
+          f"kernel time {step.device / HEIGHT * 1e3:.6f} us a timestep, "
+          f"on the stream (not profiled) {step.stream / HEIGHT * 1e3:.6f} "
+          f"us, first kernel to last under the profiler "
+          f"{step.span / HEIGHT * 1e3:.6f} us ({step.describe()})")
+    for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
+        print(f"     {len(d) / HEIGHT:.3f} a timestep, mean "
+              f"{sum(d) / len(d):.4f} us: {name[:110]}")
+    for name, w in walls.items():
+        print(f"   {name} run wall a timestep (host clock, {WALL_RUNS} runs "
+              f"in turns): min {min(w):.6f} us, median "
+              f"{float(np.median(w)):.6f} us, each {[round(x, 3) for x in w]}")
+    print(f"   torch-scan / cuda-graph wall, medians: "
+          f"{np.median(walls['torch-scan']) / np.median(walls['cuda-graph']):.3f}")
 
 
 def attention_times(dev, bound, peak_bf16: float, sms: int):

@@ -1,9 +1,10 @@
 """Execution backends of the port — the 'n systems' axis of the paper.
 
-| backend    | reference     | schedule              | dispatch cost   |
-|------------|---------------|-----------------------|-----------------|
-| torch-scan | xla-scan      | eager timestep loop   | O(ops) per step |
-| cuda-fused | pallas-fused  | in-kernel, one launch | O(1) per GRAPH  |
+| backend    | reference    | schedule                | dispatch cost              |
+|------------|--------------|-------------------------|----------------------------|
+| torch-scan | xla-scan     | eager timestep loop     | O(ops) per step            |
+| cuda-graph | xla-static   | unrolled, captured once | O(1) host launches per RUN |
+| cuda-fused | pallas-fused | in-kernel, one launch   | O(1) per GRAPH             |
 
 Every backend runs every graph (pattern x kernel x payload x imbalance)
 unchanged and is validated against the numpy oracle in ``core.validate``.
@@ -12,6 +13,7 @@ The registry is the port's own (``base._BACKENDS``).
 from .base import (Backend, StackedProgramBackend, backend_names,
                    backend_option_signature, get_backend, parse_backend_spec,
                    register_backend, resolve_device)
+from .dataflow import DataflowBackend
 from .megakernel import MegakernelBackend
 from .scanvec import ScanBackend
 
@@ -24,6 +26,7 @@ __all__ = [
     "parse_backend_spec",
     "register_backend",
     "resolve_device",
+    "DataflowBackend",
     "MegakernelBackend",
     "ScanBackend",
 ]

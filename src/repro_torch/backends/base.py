@@ -173,7 +173,10 @@ class StackedProgramBackend(Backend):
     ``_build_stacked(graphs)``, a program returning one ``(G, W, P)``
     tensor when the graphs can share a task body (else None).  The
     runners, the numpy return and the concurrent fallback live here so the
-    scan and fused backends cannot drift apart.
+    scan, graph and fused backends cannot drift apart.  ``_executable``
+    turns a built program into what a runner calls (the program itself
+    here; ``cuda-graph`` captures it); a runner keeps that as
+    ``runner.program``.
     """
 
     def __init__(self, device: Optional[str] = None):
@@ -185,22 +188,28 @@ class StackedProgramBackend(Backend):
     def _build_stacked(self, graphs: List[TaskGraph]) -> Optional[Callable[[], torch.Tensor]]:
         return None  # no stacked form: prepare_many falls back to prepare
 
+    def _executable(self, program: Callable) -> Callable:
+        return program
+
     def prepare(self, graphs: Sequence[TaskGraph]):
-        program = self._build(list(graphs))
+        program = self._executable(self._build(list(graphs)))
 
         def runner() -> List[np.ndarray]:
             return [o.cpu().numpy() for o in program()]
 
+        runner.program = program
         return runner
 
     def prepare_many(self, graphs: Sequence[TaskGraph]):
         graphs = list(graphs)
-        program = self._build_stacked(graphs)
-        if program is None:
+        built = self._build_stacked(graphs)
+        if built is None:
             return self.prepare(graphs)
+        program = self._executable(built)
 
         def runner() -> List[np.ndarray]:
             out = program().cpu().numpy()
             return [out[k] for k in range(out.shape[0])]
 
+        runner.program = program
         return runner

@@ -42,16 +42,19 @@ def combine_acc(dep_matrix: torch.Tensor,
 
 
 def run_kernel_vec(kernel: KernelSpec, iters_per_col: torch.Tensor,
-                   acc: torch.Tensor, max_iters: int) -> torch.Tensor:
+                   acc: torch.Tensor, max_iters: int,
+                   mxu_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Vectorized kernel over the columns of ``acc``'s shape; f32 results.
 
     Thin rank adapter over ``kernels.bodies.run_kernel_columns``: leading
     dimensions fold into the column axis, so a graph stack runs as one
-    launch per timestep.
+    launch per timestep.  ``mxu_w`` is the compute_mxu weight staged on
+    ``acc``'s device (uploaded from the host on every call when None).
     """
     seed = acc.to(torch.float32) * bodies.FOLD_BLOCK
     out = bodies.run_kernel_columns(kernel, iters_per_col.reshape(-1, 1),
-                                    seed.reshape(-1, 1), max_iters)
+                                    seed.reshape(-1, 1), max_iters,
+                                    mxu_w=mxu_w)
     return out.reshape(acc.shape)
 
 
@@ -75,13 +78,15 @@ def make_payload(t, cols: torch.Tensor, base: torch.Tensor,
 
 def timestep(graph: TaskGraph, t, prev_payload: torch.Tensor,
              dep_matrix: torch.Tensor, iters_per_col: torch.Tensor,
-             cols: Optional[torch.Tensor] = None) -> torch.Tensor:
+             cols: Optional[torch.Tensor] = None,
+             mxu_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Execute one timestep of ``graph``, vectorized over a column block.
 
     prev_payload: (..., W_ctx, P) f32 from t-1.
     dep_matrix:   (..., n, W_ctx) uint8 — rows select deps within the context.
     iters_per_col:(..., n) int32 — per-task durations (imbalance-aware).
     cols:         (n,) global column ids (defaults to arange(W_ctx)).
+    mxu_w:        the staged compute_mxu weight (see ``run_kernel_vec``).
     Returns the new (..., n, P) payload block.
     """
     if cols is None:
@@ -91,7 +96,7 @@ def timestep(graph: TaskGraph, t, prev_payload: torch.Tensor,
     base = checksum_vec(t, cols).expand(acc.shape)
     combined = (base + acc) % CHECKSUM_MOD
     result = run_kernel_vec(graph.kernel, iters_per_col, acc,
-                            graph.kernel.iterations)
+                            graph.kernel.iterations, mxu_w)
     return make_payload(t, cols, base, combined, result, graph.payload_elems)
 
 

@@ -176,6 +176,63 @@ def test_k4_oversubscribed_ranks_raise(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["empty", "compute", "memory",
+                                  "compute_mxu"])
+def test_cuda_graph_is_bitwise_with_torch_scan_on_card(cuda, kind):
+    """The captured graph computes what ``torch-scan`` launches eagerly,
+    stacked and alone, on every replay."""
+    graphs = [make_graph(width=8, height=6, pattern=p, kernel=kind,
+                         iterations=5, imbalance=0.5, span_bytes=512,
+                         scratch_bytes=2048)
+              for p in ("stencil", "fft", "random")]
+    captured, scan = get_backend("cuda-graph"), get_backend("torch-scan")
+    for got, want in zip(captured.run_many(graphs), scan.run_many(graphs)):
+        assert np.array_equal(got, want)
+    runner = captured.prepare([graphs[0]])
+    want = scan.run([graphs[0]])[0]
+    for _ in range(3):
+        # blocks freed since the capture, filled with other values, must
+        # not be what the graph reads or writes
+        junk = torch.full((1 << 20,), 7.0, device=cuda)
+        assert np.array_equal(runner()[0], want)
+        del junk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["compute", "memory"])
+@pytest.mark.parametrize("ngraphs", [1, 3])
+def test_cuda_graph_run_is_one_graph_launch(cuda, kind, ngraphs):
+    """The capture records one K1 (or K2) node a timestep; a run is one
+    ``cudaGraphLaunch`` from the host and no kernel launch, and its device
+    side holds no more K1 (K2) kernels than were captured (the profiler
+    can miss launches, so the counters hold the count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = make_graph(width=8, height=6, kernel=kind, iterations=4,
+                   span_bytes=512, scratch_bytes=2048)
+    runner = get_backend("cuda-graph").prepare_many(replicate(g, ngraphs))
+    name = {"compute": "taskbench_compute", "memory": "taskbench_memory"}
+    assert runner.program.nodes == {
+        n: g.height if k == kind else 0 for k, n in name.items()}
+    runner()
+    counted = taskbench_compute.launches + taskbench_memory.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner()
+        torch.cuda.synchronize()
+    assert taskbench_compute.launches + taskbench_memory.launches == counted
+    host = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sum("cudaGraphLaunch" in n for n in host) == 1, host
+    assert not [n for n in host if "LaunchKernel" in n]
+    kernel = {"compute": "compute_kernel", "memory": "memory_kernel"}[kind]
+    ours = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+    assert 1 <= len(ours) <= g.height, ours
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pattern", ["stencil", "random", "spread"])
 def test_k3_grid_stride_matches_plain(cuda, pattern):
     """More tasks than K3's grid has CTAs: each CTA runs several tasks a
