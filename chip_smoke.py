@@ -57,9 +57,20 @@ raise on failure:
    ``cuda-fused[comm=onesided,ranks=132]`` (one rank per column); every
    output checked against the numpy oracle and all backends bitwise equal;
    ``cuda-graph``'s capture and instantiation times, its graph pool, its
-   K1/K2 nodes and its first and later run walls printed;
+   K1/K2 nodes and its first and later run walls printed; then
+   ``torch-host`` (per-task host dispatch), static and stealing with 4
+   workers, on the same three cases cut to HOST_HEIGHT timesteps (a task
+   is 13 PyTorch launches from the host, 260-370 us on an H100 host, so
+   the full height would take ~40 s a run on stencil and ~160 s on 4 x
+   nearest): each output against
+   the oracle of the cut graphs and bitwise against ``torch-scan`` on
+   them, K1 (or K2) launched exactly H x W times a graph, the wall a task,
+   and from one profiled window the PyTorch kernels, host launches and
+   kernel time a task;
 6. METG on the card: ``run_scenario`` with the wall clock over iterations
-   4096 -> 1 for the four backends;
+   4096 -> 1 for the four backends above and ``torch-host`` (at
+   HOST_METG_HEIGHT timesteps), self-normalised and against the best rate
+   of the five;
 7. the serving path: ``mamba2-2.7b`` at full width (64 layers, bf16,
    random weights from seed 0) served by ``ServeEngine(batch_slots=4,
    chunk_size=8)`` on six requests, the launch counts zeroed just before
@@ -77,7 +88,13 @@ raise on failure:
    once a local-attention layer for every prefill of more than one token,
    the 3000-token prefill logits with K5 against the same forward on the
    plain version, and the time to first token of the 1000- and 3000-token
-   prompts alone.
+   prompts alone;
+9. the load-imbalance study (paper §V-G) on the card: every cell of
+   ``imbalance_study_specs()`` (``torch-host`` static and stealing,
+   imbalance 0 to 2) through ``run_scenario`` with the wall clock, each
+   result written by ``write_bench_json`` into ``build/bench`` and read
+   back through the schema check, and the elapsed times and mitigation
+   curve printed.
 
 The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -117,7 +134,9 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     taskbench_fused, taskbench_fused_plain, taskbench_onesided,
     taskbench_onesided_plain)
 from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
-                               compute_metg, run_scenario)
+                               compute_metg, elapsed_s, imbalance_study_specs,
+                               mitigation_curve, read_bench_json, run_scenario,
+                               write_bench_json)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
@@ -145,6 +164,13 @@ ONESIDED = f"cuda-fused[comm=onesided,ranks={WIDTH}]"  # a rank per column
 PIN_RUNS = 4  # runs of each structural-pin case under one profiler window
 GRAPH_NODES = 200  # empty kernels in the graph that times one as a node
 WALL_RUNS = 5  # runs of cuda-graph and torch-scan, in turns, for the walls
+# torch-host issues 13 PyTorch launches a task from the host (260-370 us a
+# task on an H100 host), so its graphs are cut in height: the full H=1000
+# would take ~40 s a run on stencil and ~160 s on 4 x nearest
+HOST_HEIGHT = 100  # phase 5
+HOST_METG_HEIGHT = 32  # phase 6
+HOST_PROFILE_HEIGHT = 5  # the profiled window of phase 5 (660 tasks)
+HOSTS = ("torch-host", "torch-host[schedule=steal,workers=4]")
 PROFILE_WINDOWS = 10  # ``timed``: 1 + the windows it may rerun when one
 # misses kernels or disagrees with the others
 TIMED_WINDOWS = 3  # profiled windows whose median ``timed`` reports; for a
@@ -537,13 +563,13 @@ GRAPHS = {
 }
 
 
-def full_size(name: str):
-    return make_graph(width=WIDTH, height=HEIGHT, output_bytes=16,
+def full_size(name: str, height: int = HEIGHT):
+    return make_graph(width=WIDTH, height=height, output_bytes=16,
                       **GRAPHS[name])
 
 
-def oracle(name: str) -> np.ndarray:
-    return execute_reference(full_size(name))
+def oracle(name: str, height: int = HEIGHT) -> np.ndarray:
+    return execute_reference(full_size(name, height))
 
 
 def main() -> int:
@@ -556,6 +582,9 @@ def main() -> int:
     with ProcessPoolExecutor(len(ORACLE_GRAPHS),
                              mp_context=get_context("spawn")) as pool:
         oracles = {name: pool.submit(oracle, name) for name in ORACLE_GRAPHS}
+        oracles.update({(name, HOST_HEIGHT): pool.submit(oracle, name,
+                                                         HOST_HEIGHT)
+                        for name in ORACLE_GRAPHS})
         kernels = run_phases(full_size("stencil"), full_size("nearest"),
                              full_size("memory"), oracles)
     print(f"\ntotal time {time.perf_counter() - t_all:.3f} s")
@@ -934,6 +963,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                                          f"{names[0]}")
         print(f"   {label}: {', '.join(names)} pass check_outputs against "
               f"the oracle and agree bitwise")
+    host_paths(scan, oracles, counters)
     done(t0)
 
     # -- kernel times at the main path's shapes -------------------------
@@ -1016,18 +1046,23 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     done(t0)
 
     # -- 6. METG on the card --------------------------------------------
-    t0 = phase("6. METG: stencil/compute W=132 H=1000, iterations 4096 -> 1")
+    t0 = phase(f"6. METG: stencil/compute W={WIDTH} H={HEIGHT} (torch-host "
+               f"H={HOST_METG_HEIGHT}), iterations 4096 -> 1")
     results = {}
-    for be_name in ("cuda-fused", ONESIDED, "cuda-graph", "torch-scan"):
+    for be_name in ("cuda-fused", ONESIDED, "cuda-graph", "torch-scan",
+                    "torch-host"):
+        height = HOST_METG_HEIGHT if be_name == "torch-host" else HEIGHT
         spec = ScenarioSpec(
             name=f"metg.{be_name}.stencil", backend=be_name,
-            pattern="stencil", kernel="compute", width=WIDTH, height=HEIGHT,
+            pattern="stencil", kernel="compute", width=WIDTH, height=height,
             cores=sms, sweep=SweepControls(iterations_hi=4096, n_points=7,
                                            repeats=3, warmup=1))
+        t1 = time.perf_counter()
         res = run_scenario(spec)
         results[be_name] = res
         metg = res.metg_s
-        print(f"   {be_name}: METG {metg * 1e6 if metg else None} us "
+        print(f"   {be_name} (H={height}, {time.perf_counter() - t1:.3f} s):"
+              f" METG {metg * 1e6 if metg else None} us "
               f"(granularity = wall x {sms} SMs / tasks), peak "
               f"{res.peak_rate:.6e} FLOP/s")
         for p in sorted(res.points, key=lambda p: -p.iterations):
@@ -1037,13 +1072,14 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     common = max(r.peak_rate for r in results.values())
     for be_name, res in results.items():
         m = compute_metg(res.points, peak_rate=common).metg
-        print(f"   {be_name} against the best rate of the four "
+        print(f"   {be_name} against the best rate of the five "
               f"({common:.6e} FLOP/s): METG {m * 1e6 if m else None} us")
     print(f"   ({card})")
     done(t0)
 
     launches["K6"] = serve_phase(MAMBA, "7", dev, card, counters)
     launches["K5"] = serve_phase(GEMMA, "8", dev, card, counters)
+    study_phase(card)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1069,6 +1105,114 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device}
             for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
+
+
+def host_paths(scan, oracles: dict, counters: dict) -> None:
+    """``torch-host``, static and stealing, on the three cases cut to
+    HOST_HEIGHT: each output against the numpy oracle of the cut graph and
+    bitwise against ``torch-scan`` on it; the launch counts, zeroed just
+    before each run and read just after, K1 (or K2) once a task, H x W a
+    graph; on stencil the wall a task of static and steal in turns
+    (static, steal, steal, static: each first run and a later one); then
+    one profiled window of a stencil run cut to HOST_PROFILE_HEIGHT: the
+    PyTorch kernels, host launches and kernel time a task."""
+    cases = (("stencil", "stencil", 1), ("4 x nearest[radix=5]", "nearest", 4),
+             ("memory 1 MiB", "memory", 1))
+    for label, key, n in cases:
+        graphs = replicate(full_size(key, HOST_HEIGHT), n)
+        tasks = sum(g.num_tasks for g in graphs)
+        ref = oracles[key, HOST_HEIGHT].result()
+        want = scan.prepare_many(graphs)()
+        kernel = "K2" if key == "memory" else "K1"
+        runners, walls = {}, {}
+        for spec in HOSTS:
+            runners[spec] = get_backend(spec).prepare_many(graphs)
+            for fn in counters.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            outs = runners[spec]()
+            walls[spec] = [(time.perf_counter() - t1) / tasks * 1e6]
+            counts = {k: fn.launches for k, fn in counters.items()}
+            expect = {k: tasks if k == kernel else 0 for k in counts}
+            if counts != expect:
+                raise AssertionError(f"{label} on {spec}: launches {counts}, "
+                                     f"expected {expect} (one {kernel} a "
+                                     f"task, H x W a graph)")
+            for g, out, w in zip(graphs, outs, want):
+                check_outputs(g, out, expected=ref)
+                if not np.array_equal(out, w):
+                    raise AssertionError(f"{label} on {spec}: differs from "
+                                         f"torch-scan")
+            print(f"   {label}, H={HOST_HEIGHT}, on {spec}: {tasks} tasks, "
+                  f"launches {counts}")
+        if key == "stencil":
+            for spec in reversed(HOSTS):
+                t1 = time.perf_counter()
+                runners[spec]()
+                walls[spec].append((time.perf_counter() - t1) / tasks * 1e6)
+        for spec in HOSTS:
+            print(f"   {label} on {spec}: wall a task (host clock) "
+                  f"{', '.join(f'{w:.3f}' for w in walls[spec])} us")
+        del runners
+        print(f"   {label}: torch-host static and steal pass check_outputs "
+              f"against the oracle of the cut graphs and agree bitwise with "
+              f"torch-scan")
+    g = full_size("stencil", HOST_PROFILE_HEIGHT)
+    runner = get_backend(HOSTS[0]).prepare([g])
+    runner()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        runner()
+        wall = time.perf_counter() - t1
+    kern = device_kernels(prof)
+    launches = host_calls(prof, "LaunchKernel")
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    n = g.num_tasks
+    print(f"   profiled window, stencil H={HOST_PROFILE_HEIGHT} on torch-host "
+          f"({n} tasks): {len(kern) / n:.3f} CUDA kernels a task recorded, "
+          f"{len(launches) / n:.3f} kernel launches a task from the host, "
+          f"kernel time {busy / n:.3f} us a task in {wall / n * 1e6:.3f} us "
+          f"of wall a task under the profiler (idle share "
+          f"{1 - busy / 1e6 / wall:.3f})")
+    by_name = {}
+    for e in kern:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, d in sorted(by_name.items(), key=lambda kv: -len(kv[1])):
+        print(f"     {len(d) / n:.3f} a task, mean {sum(d) / len(d):.4f} us: "
+              f"{name[:110]}")
+
+
+def study_phase(card: str) -> None:
+    """The load-imbalance study (paper §V-G) on the card: every
+    ``imbalance_study_specs()`` cell (``torch-host`` static and stealing,
+    imbalance 0 to 2, the two schedules in turns) through ``run_scenario``
+    with the wall clock, each
+    result written by ``write_bench_json`` into ``build/bench`` and read
+    back through the schema check; the elapsed times and
+    ``mitigation_curve``."""
+    t0 = phase("9. load-imbalance study on the card: torch-host static vs "
+               "steal, wall clock")
+    outdir = ROOT / "build" / "bench"
+    results = {}
+    # static and steal in turns at each imbalance, so the host's drift
+    # over the phase falls on both schedules alike
+    for spec in sorted(imbalance_study_specs(), key=lambda c: c.imbalance):
+        res = run_scenario(spec)
+        doc = read_bench_json(write_bench_json(res, str(outdir)))
+        if doc["scenario"]["backend"] != spec.backend or \
+                doc["points"][0]["wall_time_s"] != elapsed_s(res):
+            raise AssertionError(f"{spec.name}: the artifact read back is "
+                                 f"not the result written")
+        results[spec.imbalance, spec.name.split(".")[2]] = res
+        print(f"   {spec.name}: elapsed {elapsed_s(res):.6e} s "
+              f"({spec.width} x {spec.height} tasks, best of "
+              f"{spec.sweep.repeats}), artifact read back")
+    for p in mitigation_curve(results):
+        print(f"   {p.variant} imbalance {p.x}: elapsed {p.elapsed_s:.6e} s, "
+              f"rate {p.rate:.6e}, mitigation factor {p.metric:.6f}")
+    print(f"   ({card})")
+    done(t0)
 
 
 def graph_times(runner, scan_runner, k1_call, k1_alone: Timing,

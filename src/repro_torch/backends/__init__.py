@@ -2,6 +2,7 @@
 
 | backend    | reference    | schedule                | dispatch cost              |
 |------------|--------------|-------------------------|----------------------------|
+| torch-host | host-dynamic | host loop, per task     | O(ops) per TASK            |
 | torch-scan | xla-scan     | eager timestep loop     | O(ops) per step            |
 | cuda-graph | xla-static   | unrolled, captured once | O(1) host launches per RUN |
 | cuda-fused | pallas-fused | in-kernel, one launch   | O(1) per GRAPH             |
@@ -11,9 +12,11 @@ unchanged and is validated against the numpy oracle in ``core.validate``.
 The registry is the port's own (``base._BACKENDS``).
 """
 from .base import (Backend, StackedProgramBackend, backend_names,
-                   backend_option_signature, get_backend, parse_backend_spec,
-                   register_backend, resolve_device)
+                   backend_option_signature, canonical_backend_spec,
+                   get_backend, parse_backend_spec, register_backend,
+                   resolve_device)
 from .dataflow import DataflowBackend
+from .host import HostBackend
 from .megakernel import MegakernelBackend
 from .scanvec import ScanBackend
 
@@ -22,11 +25,13 @@ __all__ = [
     "StackedProgramBackend",
     "backend_names",
     "backend_option_signature",
+    "canonical_backend_spec",
     "get_backend",
     "parse_backend_spec",
     "register_backend",
     "resolve_device",
     "DataflowBackend",
+    "HostBackend",
     "MegakernelBackend",
     "ScanBackend",
 ]

@@ -87,6 +87,22 @@ def parse_backend_spec(spec: str) -> Tuple[str, Dict[str, object]]:
     return name, dict(sorted(kwargs.items()))
 
 
+def canonical_backend_spec(spec: str) -> str:
+    """The canonical rendering of a backend spec string.
+
+    Parses and re-renders with options sorted by key (bools/numbers in
+    Python spelling, strings as bare words), so key-reordered spellings
+    of the same spec — ``"x[a=1,b=2]"`` vs ``"x[b=2,a=1]"`` — map to one
+    identity.  ``bench.compare`` compares scenario backends through this
+    so a reordered baseline never reads as a vanished scenario.
+    """
+    name, kwargs = parse_backend_spec(spec)
+    if not kwargs:
+        return name
+    opts = ",".join(f"{k}={v}" for k, v in kwargs.items())
+    return f"{name}[{opts}]"
+
+
 def backend_option_signature(name: str) -> Dict[str, object]:
     """The registered backend's constructor options and their defaults."""
     if name not in _BACKENDS:
@@ -148,6 +164,20 @@ class Backend:
 
     name = "base"
     paradigm = ""  # paper Table 4 analogue, reported by benchmarks
+    # deterministic-model hints consumed by bench.timers.SyntheticTimer:
+    # how this backend lays a wavefront's tasks over workers
+    # (core.schedule policy), and whether it issues the next step's
+    # communication ahead of the current kernel body (double buffering)
+    sched_policy = "static"
+    comm_overlap = False
+    # which dispatch-cost model this backend's execution implies:
+    # "per-task" — every task pays the runtime's dispatch overhead (the
+    # paper's model); "per-launch" — one fixed launch cost for the whole
+    # graph batch (the fused kernel).  Each counterpart carries its
+    # reference's value.  The timer reads these from the class and the
+    # spec's options, never by construction (which needs a card unless
+    # the spec asks for the CPU).
+    dispatch_model = "per-task"
 
     def prepare(self, graphs: Sequence[TaskGraph]) -> Callable[[], List[np.ndarray]]:
         """Stage the workload; the returned callable blocks on finish."""

@@ -43,18 +43,21 @@ def combine_acc(dep_matrix: torch.Tensor,
 
 def run_kernel_vec(kernel: KernelSpec, iters_per_col: torch.Tensor,
                    acc: torch.Tensor, max_iters: int,
-                   mxu_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   mxu_w: Optional[torch.Tensor] = None,
+                   dynamic: bool = False) -> torch.Tensor:
     """Vectorized kernel over the columns of ``acc``'s shape; f32 results.
 
     Thin rank adapter over ``kernels.bodies.run_kernel_columns``: leading
     dimensions fold into the column axis, so a graph stack runs as one
     launch per timestep.  ``mxu_w`` is the compute_mxu weight staged on
     ``acc``'s device (uploaded from the host on every call when None).
+    ``dynamic`` selects the loop's dynamic mode, ``max_iters`` then being
+    the trip count (per-task dispatch: the task's own iterations).
     """
     seed = acc.to(torch.float32) * bodies.FOLD_BLOCK
     out = bodies.run_kernel_columns(kernel, iters_per_col.reshape(-1, 1),
                                     seed.reshape(-1, 1), max_iters,
-                                    mxu_w=mxu_w)
+                                    dynamic=dynamic, mxu_w=mxu_w)
     return out.reshape(acc.shape)
 
 

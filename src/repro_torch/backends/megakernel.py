@@ -357,6 +357,7 @@ class MegakernelBackend(StackedProgramBackend):
     """Whole-graph fusion below the per-launch dispatch floor."""
 
     paradigm = "persistent fused kernel (single launch per graph batch)"
+    dispatch_model = "per-launch"
 
     def __init__(self, device: Optional[str] = None,
                  comm: Optional[str] = None, ranks: Optional[int] = None):

@@ -3,8 +3,15 @@
 - ``metg``     — the pure metric math: sweep points, efficiency curves,
                  METG crossover (a copy of the reference's)
 - ``scenario`` — declarative ``ScenarioSpec`` / ``SweepControls``
-- ``timers``   — the ``Timer`` protocol and the wall clock
+- ``timers``   — the ``Timer`` protocol: wall clock and the synthetic
+                 fake clock
 - ``sweep``    — ``run_scenario``: spec + timer -> ``ScenarioResult``
+- ``artifact`` — schema-checked ``BENCH_<scenario>.json`` writer
+- ``compare``  — artifact diffing: the bench-regression gate
+- ``studies``  — the communication-hiding (``metg_payload``) and
+                 load-imbalance (``metg_imbalance``) scenario families
+                 and their derived metrics (overlap efficiency,
+                 mitigation factor)
 
 Multi-graph scenarios (``ngraphs >= 2``) execute concurrently through
 ``Backend.run_many``.
@@ -13,8 +20,18 @@ from .metg import (METGResult, SweepPoint, compute_metg, efficiency_curve,
                    geometric_iterations, observed_peak, run_sweep,
                    sweep_point, time_run)
 from .scenario import ScenarioSpec, SweepControls
-from .timers import Timer, WallClockTimer
+from .timers import SyntheticTimer, Timer, WallClockTimer
 from .sweep import ScenarioResult, run_scenario
+from .artifact import (SCHEMA_VERSION, bench_artifact, read_bench_json,
+                       validate_artifact, write_bench_json)
+from .compare import (ComparisonResult, PointDelta, bench_json_names,
+                      compare_artifacts, compare_dirs, format_report,
+                      scenario_family)
+from .studies import (StudyPoint, elapsed_s, imbalance_spec,
+                      imbalance_study_specs, mitigation_curve,
+                      mitigation_factor, observed_rate, overlap_efficiency,
+                      payload_curve, payload_spec, payload_study_specs,
+                      study_timer)
 
 __all__ = [
     "METGResult",
@@ -30,6 +47,29 @@ __all__ = [
     "SweepControls",
     "Timer",
     "WallClockTimer",
+    "SyntheticTimer",
     "ScenarioResult",
     "run_scenario",
+    "SCHEMA_VERSION",
+    "bench_artifact",
+    "read_bench_json",
+    "validate_artifact",
+    "write_bench_json",
+    "ComparisonResult",
+    "PointDelta",
+    "compare_artifacts",
+    "compare_dirs",
+    "format_report",
+    "StudyPoint",
+    "elapsed_s",
+    "imbalance_spec",
+    "imbalance_study_specs",
+    "mitigation_curve",
+    "mitigation_factor",
+    "observed_rate",
+    "overlap_efficiency",
+    "payload_curve",
+    "payload_spec",
+    "payload_study_specs",
+    "study_timer",
 ]

@@ -3,6 +3,8 @@
 - graph: 2-D iteration space + dependence relation + self-validating body
 - patterns: trivial/stencil/fft/sweep/tree/random/nearest/spread relations
 - kernel_spec / kernel_ref: compute- and memory-bound task kernels
+- schedule: wavefront scheduling models (static ownership vs work
+  stealing), shared by the host executor and the synthetic fake clock
 - validate: numpy oracle executor + backend output checks
 
 The port imports nothing of the reference package; the tests hold these
@@ -11,6 +13,7 @@ copies equal to it.
 from .graph import CHECKSUM_MOD, TaskGraph, make_graph, replicate
 from .kernel_spec import KernelSpec
 from .patterns import get_pattern, pattern_names
+from .schedule import static_owners, steal_schedule, wavefront_makespan
 from .validate import check_multi, check_outputs, execute_reference
 
 __all__ = [
@@ -21,6 +24,9 @@ __all__ = [
     "KernelSpec",
     "get_pattern",
     "pattern_names",
+    "static_owners",
+    "steal_schedule",
+    "wavefront_makespan",
     "check_multi",
     "check_outputs",
     "execute_reference",

@@ -1,8 +1,10 @@
 """Task Bench kernel bodies in plain PyTorch, and the column dispatcher.
 
 Counterpart of ``repro.kernels.bodies``: the three Task Bench inner loops
-(compute / compute_mxu / memory) as step functions, one masked iteration
-loop, and ``run_kernel_columns``, the task-kernel body every backend runs.
+(compute / compute_mxu / memory) as step functions, one iteration loop
+(static: keep-masked; dynamic: a trip count the host passes, for per-task
+dispatch), and ``run_kernel_columns``, the task-kernel body every backend
+runs.
 
 On a CUDA tensor ``run_kernel_columns`` sends the compute kind to the
 hand-written kernel K1 (``kernels.compute``) and the memory kind to K2
@@ -52,12 +54,24 @@ def mxu_step(b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def masked_loop(step_fn: Callable, state: torch.Tensor, iters: torch.Tensor,
-                max_iters: int) -> torch.Tensor:
-    """``max_iters`` steps with a per-column keep-old mask (static mode).
+                max_iters: int, dynamic: bool = False) -> torch.Tensor:
+    """Run the kernel loop with per-column iteration counts.
+
+    Static mode: ``max_iters`` steps with a per-column keep-old mask, so
+    column ``w`` ends after ``min(iters[w], max_iters)`` steps — what
+    vectorized runtimes must do, and why they cannot exploit load
+    imbalance (paper §V-G).  Dynamic mode: ``max_iters`` steps with no
+    mask, where the caller passes the trip count ``max(iters)`` as a host
+    int (the reference traces ``jnp.max(iters)``; reading it from a device
+    tensor here would sync) — per-task systems genuinely run fewer
+    iterations for short tasks.  Values are bitwise identical.
 
     ``iters`` may be ``(W,)`` or ``(W, 1)``; ``state`` has leading W.
-    Column ``w`` ends after ``min(iters[w], max_iters)`` steps.
     """
+    if dynamic:
+        for k in range(max_iters):
+            state = step_fn(k, state)
+        return state
     keep_shape = (state.shape[0],) + (1,) * (state.ndim - 1)
     iters = iters.reshape(keep_shape)
     for k in range(max_iters):
@@ -76,13 +90,19 @@ def memory_geometry(kernel: KernelSpec) -> Tuple[int, int, int]:
 
 def run_kernel_columns(kernel: KernelSpec, iters_col: torch.Tensor,
                        seed_col: torch.Tensor, max_iters: int,
+                       dynamic: bool = False,
                        mxu_w: Optional[torch.Tensor] = None,
                        plain: bool = False) -> torch.Tensor:
     """The shared task-kernel body in column-vector form.
 
     ``iters_col``/``seed_col`` are ``(W, 1)`` int32 / float32; returns
-    ``(W, 1)`` f32 results.  ``mxu_w`` is the (128, 128) weight on the
-    seed's device (built from ``mxu_weight()`` when None).
+    ``(W, 1)`` f32 results.  ``dynamic`` is ``masked_loop``'s mode, with
+    ``max_iters`` the trip count.  K1 and K2 (and their plain versions)
+    stop column ``w`` at ``min(iters[w], max_iters)``, so for one column
+    with ``max_iters = iters[0]`` (per-task dispatch) they run the dynamic
+    trip in either mode; only compute_mxu loops differently.  ``mxu_w`` is
+    the (128, 128) weight on the seed's device (built from
+    ``mxu_weight()`` when None).
     """
     from . import compute, memory  # the kernel modules build on this one
 
@@ -105,7 +125,7 @@ def run_kernel_columns(kernel: KernelSpec, iters_col: torch.Tensor,
         if mxu_w is None:
             mxu_w = torch.as_tensor(mxu_weight(), device=seed_col.device)
         out = masked_loop(lambda k, bb: mxu_step(bb, mxu_w), b, iters_col,
-                          max_iters)
+                          max_iters, dynamic)
         return out[:, 0, 0:1]
 
     if kernel.kind == "memory":

@@ -207,7 +207,8 @@ def test_cuda_fused_matches_reference_on_ragged_payload(oracle):
 
 # ------------------------------------------------------ registry, device
 def test_port_registry_is_its_own():
-    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-scan"]
+    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-host",
+                                  "torch-scan"]
     assert not set(tb.backend_names()) & set(ref_backends.backend_names())
 
 
@@ -223,10 +224,12 @@ def test_spec_grammar():
 
 KNOWN_OPTIONS = {"torch-scan": "\\['device'\\]",
                  "cuda-graph": "\\['device'\\]",
-                 "cuda-fused": "\\['device', 'comm', 'ranks'\\]"}
+                 "cuda-fused": "\\['device', 'comm', 'ranks'\\]",
+                 "torch-host": "\\['schedule', 'workers', 'device'\\]"}
 
 
-@pytest.mark.parametrize("name", ["torch-scan", "cuda-fused", "cuda-graph"])
+@pytest.mark.parametrize("name", ["torch-scan", "cuda-fused", "cuda-graph",
+                                  "torch-host"])
 def test_unknown_option_is_rejected_naming_the_key(name):
     with pytest.raises(ValueError, match="'devcie'.*known options: "
                                          + KNOWN_OPTIONS[name]):
@@ -282,7 +285,8 @@ def test_import_and_run_load_no_jax_or_reference_module():
         "from repro_torch.core import make_graph, check_outputs\n"
         "g = make_graph(width=4, height=3, iterations=2)\n"
         "for b in ('torch-scan[device=cpu]', 'cuda-fused[device=cpu]',\n"
-        "          'cuda-graph[device=cpu]'):\n"
+        "          'cuda-graph[device=cpu]', 'torch-host[device=cpu]',\n"
+        "          'torch-host[schedule=steal,workers=2,device=cpu]'):\n"
         "    check_outputs(g, get_backend(b).run([g])[0])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

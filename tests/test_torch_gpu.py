@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K6 on the card, against their plain versions.
+"""The CUDA kernels K1-K6 on the card, against their plain versions, and
+the backends that launch them.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
 one.  The file imports neither JAX nor the reference package, so it runs
@@ -230,6 +231,69 @@ def test_cuda_graph_run_is_one_graph_launch(cuda, kind, ngraphs):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and kernel in e.name]
     assert 1 <= len(ours) <= g.height, ours
+
+
+HOSTS = ["torch-host", "torch-host[schedule=steal,workers=4]"]
+
+
+def host_graphs(kind, ngraphs):
+    return [make_graph(width=8, height=6, pattern=p, kernel=kind,
+                       iterations=5, imbalance=0.5, span_bytes=512,
+                       scratch_bytes=2048)
+            for p in ("stencil", "fft", "random")[:ngraphs]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+@pytest.mark.parametrize("kind", ["empty", "compute", "memory",
+                                  "compute_mxu"])
+@pytest.mark.parametrize("spec", HOSTS)
+def test_torch_host_is_bitwise_with_torch_scan_on_card(cuda, spec, kind,
+                                                       ngraphs):
+    """Per-task dispatch (K1 or K2 for a single column, the task's own
+    iterations) computes what ``torch-scan``'s timestep launches do."""
+    graphs = host_graphs(kind, ngraphs)
+    scan = get_backend("torch-scan")
+    for got, want in zip(get_backend(spec).run_many(graphs),
+                         scan.run_many(graphs)):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+@pytest.mark.parametrize("kind", ["compute", "memory"])
+@pytest.mark.parametrize("spec", HOSTS)
+def test_torch_host_launches_k1_or_k2_once_a_task(cuda, spec, kind,
+                                                  ngraphs):
+    graphs = host_graphs(kind, ngraphs)
+    runner = get_backend(spec).prepare_many(graphs)
+    counters = {"compute": taskbench_compute, "memory": taskbench_memory}
+    before = {k: fn.launches for k, fn in counters.items()}
+    runner()
+    counted = {k: fn.launches - before[k] for k, fn in counters.items()}
+    tasks = sum(g.num_tasks for g in graphs)
+    assert counted == {k: tasks if k == kind else 0 for k in counters}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+@pytest.mark.parametrize("kind", ["empty", "compute", "memory",
+                                  "compute_mxu"])
+@pytest.mark.parametrize("spec", HOSTS)
+def test_torch_host_dispatch_never_syncs(cuda, spec, kind, ngraphs):
+    """A run issues every task without one device-to-host sync: the copy
+    to numpy after the issue is the only one."""
+    graphs = host_graphs(kind, ngraphs)
+    runner = get_backend(spec).prepare_many(graphs)
+    want = runner()  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finals = runner.issue()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, w in zip(finals, want):
+        assert np.array_equal(got.cpu().numpy(), w)
 
 
 @pytest.mark.gpu
