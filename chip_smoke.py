@@ -94,7 +94,23 @@ raise on failure:
    imbalance 0 to 2) through ``run_scenario`` with the wall clock, each
    result written by ``write_bench_json`` into ``build/bench`` and read
    back through the schema check, and the elapsed times and mitigation
-   curve printed.
+   curve printed;
+10. the message-passing backends with RANKS (4) rank processes sharing
+   the card, rows staged through pinned host buffers over gloo: whether an
+   MPS daemon runs, the host's CPUs and the ranks' affinity, the ranks'
+   start time and context memory; ``torch-csp`` in modes halo (auto),
+   ``comm_overlap``, ``a2a`` and ``onesided`` on the three main cases at
+   full size (the 4 nearest graphs as one combined ``run_many``; in halo
+   mode also against ``run`` of one of them), the
+   ranks' K1/K2 counts zeroed just before each run and read just after
+   (H a rank a graph), each output against the oracle and bitwise with
+   ``torch-scan``, the one-sided mode
+   bitwise with K4 at 4 ranks; ``torch-pipeline`` on a sweep graph (ring
+   mode); each run's split a rank (body, waiting for the device, staging,
+   gloo); the wall a timestep beside ``torch-scan``'s in turns; one
+   profiled run a rank (kernel and copy time, idle share); METG of
+   ``torch-csp[ranks=4]`` at CSP_METG_HEIGHT timesteps; and the payload
+   study at 4 ranks.
 
 The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -113,6 +129,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -133,15 +150,18 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     MegakernelBackend, onesided_tables_from_numpy, tables_from_numpy,
     taskbench_fused, taskbench_fused_plain, taskbench_onesided,
     taskbench_onesided_plain)
+from repro_torch.backends import csp  # noqa: E402
 from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
                                compute_metg, elapsed_s, imbalance_study_specs,
-                               mitigation_curve, read_bench_json, run_scenario,
-                               write_bench_json)
+                               mitigation_curve, payload_curve,
+                               payload_study_specs, read_bench_json,
+                               run_scenario, write_bench_json)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
                               replicate)
 from repro_torch.dist import plan_comm  # noqa: E402
+from repro_torch.dist.ranks import close_pools  # noqa: E402
 from repro_torch.kernels import (_build, bodies,  # noqa: E402
                                  taskbench_compute, taskbench_compute_plain,
                                  taskbench_memory, taskbench_memory_plain)
@@ -171,6 +191,17 @@ HOST_HEIGHT = 100  # phase 5
 HOST_METG_HEIGHT = 32  # phase 6
 HOST_PROFILE_HEIGHT = 5  # the profiled window of phase 5 (660 tasks)
 HOSTS = ("torch-host", "torch-host[schedule=steal,workers=4]")
+# phase 10: the message-passing backends, 4 rank processes sharing the card
+RANKS = 4
+CSP_MODES = {"halo": f"torch-csp[ranks={RANKS}]",
+             "overlap": f"torch-csp[comm_overlap=True,ranks={RANKS}]",
+             "a2a": f"torch-csp[comm=a2a,ranks={RANKS}]",
+             "onesided": f"torch-csp[comm=onesided,ranks={RANKS}]"}
+PIPELINE = f"torch-pipeline[ranks={RANKS}]"
+CSP_WALL_RUNS = 2  # later runs of the stencil, in turns with torch-scan
+# a torch-csp[ranks=4] step takes ~1.6-2.1 ms on an H100 host, so its METG
+# sweep (7 points x 4 runs) is cut in height: at H=1000 it took 52 s
+CSP_METG_HEIGHT = 250
 PROFILE_WINDOWS = 10  # ``timed``: 1 + the windows it may rerun when one
 # misses kernels or disagrees with the others
 TIMED_WINDOWS = 3  # profiled windows whose median ``timed`` reports; for a
@@ -560,6 +591,7 @@ GRAPHS = {
                    scratch_bytes=MEM_SCRATCH),
     "spread": dict(pattern="spread", kernel="compute", iterations=MAIN_ITERS,
                    radix=5),
+    "sweep": dict(pattern="sweep", kernel="compute", iterations=MAIN_ITERS),
 }
 
 
@@ -585,6 +617,7 @@ def main() -> int:
         oracles.update({(name, HOST_HEIGHT): pool.submit(oracle, name,
                                                          HOST_HEIGHT)
                         for name in ORACLE_GRAPHS})
+        oracles["sweep"] = pool.submit(oracle, "sweep")
         kernels = run_phases(full_size("stencil"), full_size("nearest"),
                              full_size("memory"), oracles)
     print(f"\ntotal time {time.perf_counter() - t_all:.3f} s")
@@ -1080,6 +1113,11 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     launches["K6"] = serve_phase(MAMBA, "7", dev, card, counters)
     launches["K5"] = serve_phase(GEMMA, "8", dev, card, counters)
     study_phase(card)
+    rank_launches = csp_phase(
+        {"stencil": [stencil], "nearest": replicate(nearest, 4),
+         "memory": [memory]}, oracles,
+        {key: outs[label, "torch-scan"] for label, key, _ in cases},
+        results, sms, card, counters)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1101,6 +1139,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
              "launches_on": launches_on[k],
+             "rank_launches": rank_launches.get(k, {}),
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device}
@@ -1213,6 +1252,248 @@ def study_phase(card: str) -> None:
               f"rate {p.rate:.6e}, mitigation factor {p.metric:.6f}")
     print(f"   ({card})")
     done(t0)
+
+
+def mps_status() -> str:
+    """Whether an MPS control daemon runs here (the process list), and the
+    card's compute mode."""
+    names = set()
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                comm = (d / "comm").read_text().strip()
+            except OSError:
+                continue
+            if comm.startswith("nvidia-cuda-mps"):
+                names.add(comm)
+    found = (f"running ({', '.join(sorted(names))})" if names
+             else "not running")
+    return f"MPS control daemon {found}; compute mode {smi('compute_mode')}"
+
+
+def split(stats: list) -> str:
+    """Each rank's split of one run (host clock): body, waiting for the
+    device, staging copies, gloo, the rest; with a profiled run's device
+    kernel and copy time and the device's idle share."""
+    lines = []
+    for r, st in enumerate(stats):
+        wall = st["wall_s"]
+        parts = {k: st[k] for k in ("body_s", "sync_s", "stage_s", "gloo_s")}
+        rest = wall - sum(parts.values())
+        text = ", ".join(f"{k[:-2]} {v * 1e3:.3f} ms ({v / wall:.3f})"
+                         for k, v in parts.items())
+        line = (f"     rank {r}: wall {wall * 1e3:.3f} ms: {text}, rest "
+                f"{rest * 1e3:.3f} ms ({rest / wall:.3f}, packing rows); {st['ops']} gloo "
+                f"ops, {st['copies']} staging copies of {st['bytes']} bytes")
+        prof = st.get("profile")
+        if prof is not None:
+            busy = prof["kernel_s"] + prof["copy_s"]
+            line += (f"; profiler: {prof['kernels']} kernels "
+                     f"{prof['kernel_s'] * 1e3:.3f} ms, {prof['copies']} "
+                     f"copies {prof['copy_s'] * 1e3:.3f} ms, device idle "
+                     f"share {1 - busy / wall:.3f}")
+        lines.append(line)
+    return "\n".join(lines)
+
+
+def csp_phase(cases: dict, oracles: dict, scan_outs: dict, metg: dict,
+              sms: int, card: str, counters: dict) -> dict:
+    """``torch-csp`` and ``torch-pipeline`` with RANKS rank processes
+    sharing the card, rows staged through host buffers over gloo: each
+    mode of ``CSP_MODES`` on the three main cases (the 4 nearest graphs as
+    one combined ``run_many`` program), the ranks' launch counts zeroed
+    just before each run and read just after (K1 or K2 exactly H a rank a
+    graph), every output against the oracle and bitwise against
+    ``torch-scan``'s of phase 5, ``run_many`` against ``run`` (halo); the
+    one-sided mode bitwise against K4 (``cuda-fused[comm=onesided,
+    ranks=RANKS]``); ``torch-pipeline`` on the sweep graph (ring mode).
+    Then the wall a timestep beside ``torch-scan``'s in turns, one
+    profiled run split a rank, METG, and the payload study
+    (``payload_study_specs("torch-csp")``, each spec's backend given
+    ``ranks=RANKS``).  Returns the ranks' K1/K2 counts of the stencil and
+    memory runs for the kernels line."""
+    t0 = phase(f"10. message passing: torch-csp and torch-pipeline, {RANKS} "
+               f"rank processes sharing the card over gloo")
+    print(f"   {mps_status()}")
+    print(f"   host: os.cpu_count() {os.cpu_count()}, this process's CPU "
+          f"affinity {sorted(os.sched_getaffinity(0))}")
+    free0 = torch.cuda.mem_get_info()[0]
+    t1 = time.perf_counter()
+    pool = get_backend(CSP_MODES["halo"]).pool()
+    mems = pool.call(csp.rank_memory)
+    started = time.perf_counter() - t1
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"   {RANKS} ranks started in {started:.3f} s: "
+          + "; ".join(f"rank {r} pid {i['pid']} CPUs {i['affinity']}"
+                      for r, i in enumerate(pool.info)))
+    print(f"   the card's free memory fell {(free0 - free1) / 2**20:.1f} MiB "
+          f"as the ranks started ({(free0 - free1) / RANKS / 2**20:.1f} MiB "
+          f"a rank's context); each rank's allocator holds "
+          f"{[m['reserved'] for m in mems]} bytes")
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                           "used_memory", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"   nvidia-smi compute apps (pid, memory): "
+          f"{apps.splitlines() if apps else 'none listed'}")
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        pool.call(csp.reset_launch_counts)
+
+    def read():
+        return (pool.call(csp.launch_counts),
+                {k: fn.launches for k, fn in counters.items()})
+
+    def check(label, spec, key, graphs, got, ranks_counts, here, wall,
+              prep):
+        kernel = "K2" if key == "memory" else "K1"
+        want = {k: HEIGHT * len(graphs) if k == kernel else 0
+                for k in csp.COUNTERS}
+        if ranks_counts != [want] * RANKS or any(here.values()):
+            raise AssertionError(f"{label} on {spec}: launches {ranks_counts}"
+                                 f" on the ranks, {here} here; expected "
+                                 f"{want} a rank")
+        ref = oracles[key].result()
+        for g, out, w in zip(graphs, got, scan_outs[key]):
+            check_outputs(g, out, expected=ref)
+            if not np.array_equal(out, w):
+                raise AssertionError(f"{label} on {spec}: differs from "
+                                     f"torch-scan")
+        print(f"   {label} on {spec}: prepare {prep * 1e3:.3f} ms, run "
+              f"{wall * 1e3:.3f} ms, {wall / HEIGHT * 1e6:.3f} us a "
+              f"timestep; launches a rank "
+              f"{ranks_counts[0]}; passes check_outputs, bitwise with "
+              f"torch-scan")
+
+    labels = {"stencil": "stencil", "nearest": "4 x nearest[radix=5]",
+              "memory": "memory 1 MiB"}
+    rank_launches, outs, runners = {}, {}, {}
+    for mode, spec in CSP_MODES.items():
+        be = get_backend(spec)
+        for key, graphs in cases.items():
+            t1 = time.perf_counter()
+            runner = be.prepare_many(graphs)
+            prep = time.perf_counter() - t1
+            zero()
+            t1 = time.perf_counter()
+            got = runner()
+            wall = time.perf_counter() - t1
+            counts, here = read()
+            check(labels[key], spec, key, graphs, got, counts, here, wall,
+                  prep)
+            print(split(runner.stats[0]))
+            outs[mode, key] = got
+            if mode == "halo" and key != "nearest":
+                rank_launches["K2" if key == "memory" else "K1"] = {
+                    spec: [c["K2" if key == "memory" else "K1"]
+                           for c in counts]}
+            if key == "stencil":
+                runners[mode] = runner
+            del runner
+        if mode == "halo":  # the other modes equal halo's outputs
+            one = be.run(cases["nearest"][:1])[0]
+            if any(not np.array_equal(one, o)
+                   for o in outs[mode, "nearest"]):
+                raise AssertionError(f"{spec}: run_many differs from run")
+            print(f"   {spec}: run_many of the 4 nearest graphs equals run")
+    t1 = time.perf_counter()
+    k4 = get_backend(f"cuda-fused[comm=onesided,ranks={RANKS}]")
+    for key in ("stencil", "memory"):
+        if not np.array_equal(k4.run(cases[key])[0], outs["onesided", key][0]):
+            raise AssertionError(f"{labels[key]}: {CSP_MODES['onesided']} "
+                                 f"differs from K4 at {RANKS} ranks")
+    print(f"   {CSP_MODES['onesided']} is bitwise with cuda-fused[comm="
+          f"onesided,ranks={RANKS}] (K4) on stencil and memory "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    sweep = full_size("sweep")
+    scan = get_backend("torch-scan")
+    pipe = get_backend(PIPELINE)
+    if pipe.plan(sweep).mode != "ring":
+        raise AssertionError("the sweep graph is not in ring mode")
+    t1 = time.perf_counter()
+    runner = pipe.prepare([sweep])
+    prep = time.perf_counter() - t1
+    zero()
+    t1 = time.perf_counter()
+    got = runner()
+    wall = time.perf_counter() - t1
+    counts, here = read()
+    scan_outs = dict(scan_outs, sweep=scan.run([sweep]))
+    check("sweep (ring)", PIPELINE, "sweep", [sweep], got, counts, here,
+          wall, prep)
+    print(split(runner.stats[0]))
+    del runner
+
+    # the wall a timestep in turns with torch-scan, then a profiled run
+    scan_runner = scan.prepare([cases["stencil"][0]])
+    scan_runner()
+    walls = {"torch-scan": [], CSP_MODES["halo"]: []}
+    order = (["torch-scan"] + [CSP_MODES["halo"]] * CSP_WALL_RUNS
+             + ["torch-scan"] * (CSP_WALL_RUNS - 1))
+    for name in order:
+        fn = scan_runner if name == "torch-scan" else runners["halo"]
+        t1 = time.perf_counter()
+        fn()
+        walls[name].append((time.perf_counter() - t1) / HEIGHT * 1e6)
+    for name, w in walls.items():
+        print(f"   stencil wall a timestep, {name} (host clock, in turns): "
+              f"{', '.join(f'{x:.3f}' for x in w)} us")
+    for mode in ("halo", "onesided"):
+        t1 = time.perf_counter()
+        stats = runners[mode].profile()[0]
+        print(f"   profiled run, stencil on {CSP_MODES[mode]} "
+              f"({time.perf_counter() - t1:.3f} s), each rank's split:\n"
+              f"{split(stats)}")
+    del runners, scan_runner
+
+    spec = ScenarioSpec(
+        name=f"metg.{CSP_MODES['halo']}.stencil", backend=CSP_MODES["halo"],
+        pattern="stencil", kernel="compute", width=WIDTH,
+        height=CSP_METG_HEIGHT, cores=sms,
+        sweep=SweepControls(iterations_hi=4096, n_points=7, repeats=3,
+                            warmup=1))
+    t1 = time.perf_counter()
+    res = run_scenario(spec)
+    metg_s = res.metg_s
+    print(f"   METG {CSP_MODES['halo']} (H={CSP_METG_HEIGHT}, "
+          f"{time.perf_counter() - t1:.3f} s): "
+          f"{metg_s * 1e6 if metg_s else None} us self-normalised, peak "
+          f"{res.peak_rate:.6e} FLOP/s")
+    for p in sorted(res.points, key=lambda p: -p.iterations):
+        print(f"     iterations {p.iterations:5d}: wall {p.wall_time:.6e} s, "
+              f"granularity {p.granularity * 1e6:.6f} us, efficiency "
+              f"{p.efficiency:.4f}")
+    common = max([r.peak_rate for r in metg.values()] + [res.peak_rate])
+    m = compute_metg(res.points, peak_rate=common).metg
+    print(f"   against the best rate of phase 6 ({common:.6e} FLOP/s): METG "
+          f"{m * 1e6 if m else None} us")
+
+    outdir = ROOT / "build" / "bench"
+    results = {}
+    t1 = time.perf_counter()
+    for spec in payload_study_specs("torch-csp"):
+        spec = dataclasses.replace(
+            spec, backend=f"{spec.backend[:-1]},ranks={RANKS}]")
+        res = run_scenario(spec)
+        doc = read_bench_json(write_bench_json(res, str(outdir)))
+        if doc["scenario"]["backend"] != spec.backend or \
+                doc["points"][0]["wall_time_s"] != elapsed_s(res):
+            raise AssertionError(f"{spec.name}: the artifact read back is "
+                                 f"not the result written")
+        results[spec.output_bytes, spec.name.split(".")[2]] = res
+        print(f"   {spec.name} on {spec.backend}: elapsed "
+              f"{elapsed_s(res):.6e} s (best of {spec.sweep.repeats}), "
+              f"artifact read back")
+    for p in payload_curve(results):
+        print(f"   {p.variant} {int(p.x)} bytes: elapsed {p.elapsed_s:.6e} s,"
+              f" overlap efficiency {p.metric:.6f}")
+    print(f"   payload study {time.perf_counter() - t1:.3f} s")
+    close_pools()
+    print(f"   ({card})")
+    done(t0)
+    return rank_launches
 
 
 def graph_times(runner, scan_runner, k1_call, k1_alone: Timing,

@@ -82,7 +82,8 @@ def make_payload(t, cols: torch.Tensor, base: torch.Tensor,
 def timestep(graph: TaskGraph, t, prev_payload: torch.Tensor,
              dep_matrix: torch.Tensor, iters_per_col: torch.Tensor,
              cols: Optional[torch.Tensor] = None,
-             mxu_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mxu_w: Optional[torch.Tensor] = None, dynamic: bool = False,
+             trip: Optional[int] = None) -> torch.Tensor:
     """Execute one timestep of ``graph``, vectorized over a column block.
 
     prev_payload: (..., W_ctx, P) f32 from t-1.
@@ -90,8 +91,15 @@ def timestep(graph: TaskGraph, t, prev_payload: torch.Tensor,
     iters_per_col:(..., n) int32 — per-task durations (imbalance-aware).
     cols:         (n,) global column ids (defaults to arange(W_ctx)).
     mxu_w:        the staged compute_mxu weight (see ``run_kernel_vec``).
+    dynamic:      the kernel loop's dynamic mode, ``trip`` its trip count:
+                  ``max(iters_per_col)`` as a host int the caller holds
+                  (the reference traces ``jnp.max``; reading a device
+                  tensor here would sync).  Values are bitwise the same.
     Returns the new (..., n, P) payload block.
     """
+    if dynamic and trip is None:
+        raise ValueError("the dynamic mode needs its trip count as a host "
+                         "int")
     if cols is None:
         cols = torch.arange(graph.width, device=prev_payload.device)
     prev_combined = prev_payload[..., 3].to(torch.int64)
@@ -99,7 +107,8 @@ def timestep(graph: TaskGraph, t, prev_payload: torch.Tensor,
     base = checksum_vec(t, cols).expand(acc.shape)
     combined = (base + acc) % CHECKSUM_MOD
     result = run_kernel_vec(graph.kernel, iters_per_col, acc,
-                            graph.kernel.iterations, mxu_w)
+                            trip if dynamic else graph.kernel.iterations,
+                            mxu_w, dynamic)
     return make_payload(t, cols, base, combined, result, graph.payload_elems)
 
 

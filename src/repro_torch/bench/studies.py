@@ -2,8 +2,7 @@
 
 A copy of the reference's ``repro.bench.studies`` over the port's
 backends: ``torch-host`` in place of ``host-dynamic``, and ``torch-csp``
-in place of ``shardmap-csp`` (a later slice of the port: until it is
-registered the payload study has no backend to run on).
+(rank processes exchanging rows over gloo) in place of ``shardmap-csp``.
 
 Task Bench's headline analyses beyond raw METG are each system's ability
 to *hide communication* and to *mitigate load imbalance*.  This module

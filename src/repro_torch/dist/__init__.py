@@ -1,11 +1,18 @@
-"""Multi-rank layer of the port: communication planning.
+"""Multi-rank layer of the port: communication planning and rank processes.
 
-- collectives: ``CommPlan`` and ``plan_comm``, the numpy planning half of
-  the reference's ``repro.dist.collectives`` (placement, padding of ragged
-  widths, per-pair slot layout, the one-sided put schedule)
+- collectives: ``CommPlan`` and ``plan_comm``, a copy of the reference's
+  ``repro.dist.collectives`` planning (placement, padding of ragged
+  widths, per-pair slot layout, the one-sided put schedule), and its
+  runtime half (``CommPlan.exchange``, ``onesided_push``/``onesided_wait``)
+  run on a rank with that rank's communicator
+- ranks: ``RankPool``, N rank processes in one gloo group and the
+  controller's channel to them (the counterpart of a mesh axis plus
+  ``shard_map``), and ``RankComm``, a rank's communicator, which stages
+  every exchanged tensor through host buffers
 """
 from .collectives import (MODES, CommPlan, dependency_reach,
                           directional_reach, plan_comm)
+from .ranks import RankComm, RankError, RankPool, get_pool
 
 __all__ = [
     "MODES",
@@ -13,4 +20,8 @@ __all__ = [
     "dependency_reach",
     "directional_reach",
     "plan_comm",
+    "RankComm",
+    "RankError",
+    "RankPool",
+    "get_pool",
 ]

@@ -22,9 +22,18 @@ payload rows move between them each timestep.  ``CommPlan`` is that plan:
 ``local_mats`` are the dependence matrices re-indexed into each rank's
 context window: ``[left halo | local block | right halo]`` for the
 ppermute modes, ``[recv buffers (src-major) | local block]`` for
-``a2a``/``onesided``.  The runtime half of the reference (``exchange`` and
-the one-sided push/wait, which run inside ``shard_map``) is not copied:
-the port's executing backends move the rows themselves.
+``a2a``/``onesided``.
+
+The runtime half moves the rows, on a rank of ``dist.ranks`` (the
+reference's runs inside ``shard_map``): ``local_cols``, ``exchange``
+(ring and halo are ppermutes that do not wrap — a rank with no source
+gets zeros; allgather is tiled; a2a is one all-to-all of the plan's
+slots), and ``onesided_state``/``onesided_push``/``onesided_wait``.  Each
+takes the calling rank's communicator (``dist.ranks.RankComm``) where the
+reference names the mesh axis.  ``exchange`` and ``onesided_push`` with
+``async_op=True`` return the exchange in flight (its ``wait()`` gives the
+result), so a program can post step t's rows and wait only before step
+t+1's body reads them; the values are the same either way.
 """
 from __future__ import annotations
 
@@ -33,8 +42,10 @@ import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.graph import TaskGraph
+from .ranks import Done
 
 MODES = ("auto", "ring", "halo", "allgather", "a2a", "onesided")
 
@@ -111,6 +122,92 @@ class CommPlan:
         """Drop dead padding columns from a (padded_width, ...) output."""
         return gathered[: self.width]
 
+    # ------------------------------------------- what a rank is handed
+    def shard(self, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Rank ``rank``'s slice of the tables, as ``in_specs`` would cut
+        them: its ``(H, local, ctx)`` matrices and ``(H, local)``
+        iterations."""
+        cols = slice(rank * self.local, (rank + 1) * self.local)
+        return self.local_mats[:, cols], self.iters[:, cols]
+
+    def without_tables(self) -> "CommPlan":
+        """This plan with its per-column tables cut to no columns: what a
+        rank needs besides its ``shard`` (the mode, the sizes, the slot
+        layout; ``context_width`` still holds)."""
+        return dataclasses.replace(self, local_mats=self.local_mats[:, :0],
+                                   iters=self.iters[:, :0])
+
+    @property
+    def tag_span(self) -> int:
+        """Point-to-point tags one exchange or push uses from its ``tag``:
+        two for the halo's directions, one a one-sided offset."""
+        return self.ndev + 1
+
+    # ------------------------------------------- the runtime half (rank)
+    def local_cols(self, comm) -> torch.Tensor:
+        """Global column ids of the calling rank."""
+        return comm.rank * self.local + torch.arange(self.local,
+                                                     device=comm.device)
+
+    def exchange(self, payload: torch.Tensor, comm, async_op: bool = False,
+                 tag: int = 0):
+        """Move t-1 payloads into this rank's context.
+
+        payload: (local, P) f32 — the rank's own previous-timestep rows.
+        Returns (context_width, P) rows ordered to match ``local_mats``
+        (with ``async_op``, the exchange in flight; ``wait()`` returns
+        them).  ``tag`` and the ``tag_span - 1`` tags after it are this
+        exchange's point-to-point tags.
+        """
+        if self.mode == "allgather":
+            pending = comm.all_gather(payload, tag)
+        elif self.mode == "onesided":
+            # stateless form (one put, then the wait of epoch 1); the
+            # executing backends carry (recv, sig) across steps instead
+            recv, sig = self.onesided_state(payload.shape[-1], payload.device,
+                                            payload.dtype)
+            pending = self.onesided_push(payload, recv, sig, comm, True,
+                                         tag).then(
+                lambda rs: self.onesided_wait(*rs, 1, payload))
+        elif self.mode == "a2a":
+            if self.a2a_cap == 0:
+                return _result(payload, async_op)  # no remote deps
+            idx = comm.constant(self.a2a_send_idx)[comm.rank]
+            send = payload[idx]  # (ndev, cap, P)
+            pending = comm.all_to_all(send, tag, lambda recv: torch.cat(
+                [recv.reshape(self.ndev * self.a2a_cap, -1), payload]))
+        elif self.halo == 0:
+            return _result(payload, async_op)
+        else:
+            pending = self._ppermute(payload, comm, tag)
+        return pending if async_op else pending.wait()
+
+    def _ppermute(self, payload: torch.Tensor, comm, tag: int):
+        """ring / halo: r -> r+1 (and r -> r-1 for halo), no wrap; a rank
+        with no source gets zeros."""
+        h, r, last = self.halo, comm.rank, self.ndev - 1
+        halo = self.mode == "halo"
+        edge = payload[:h]  # the shape and type of what each side gets
+        sends, recvs = [], []
+        if r < last:
+            sends.append((payload[-h:], r + 1, tag))
+        if r > 0:
+            recvs.append((edge, r - 1, tag))
+        if halo and r > 0:
+            sends.append((payload[:h], r - 1, tag + 1))
+        if halo and r < last:
+            recvs.append((edge, r + 1, tag + 1))
+
+        def finish(got):
+            got = list(got)
+            from_left = got.pop(0) if r > 0 else torch.zeros_like(edge)
+            if not halo:
+                return torch.cat([from_left, payload])
+            from_right = got.pop(0) if r < last else torch.zeros_like(edge)
+            return torch.cat([from_left, payload, from_right])
+
+        return comm.p2p(sends, recvs, finish)
+
     @functools.cached_property
     def _onesided_offsets(self) -> List[Tuple[int, np.ndarray, np.ndarray]]:
         """Static transport schedule: one entry per *active* ring offset.
@@ -132,6 +229,78 @@ class CommPlan:
             out.append((off, idx.astype(np.int32),
                         live.astype(np.float32)))
         return out
+
+    def onesided_state(self, payload_elems: int, device,
+                       dtype=torch.float32):
+        """Fresh (recv buffers, signal counters) for the executing loop.
+
+        ``recv[s]`` is the ``a2a_cap``-row buffer rank ``s`` puts into on
+        this rank; ``sig[s]`` counts the epochs rank ``s`` has signalled.
+        """
+        recv = torch.zeros((self.ndev, self.a2a_cap, payload_elems),
+                           dtype=dtype, device=device)
+        sig = torch.zeros((self.ndev,), dtype=torch.int32, device=device)
+        return recv, sig
+
+    def onesided_push(self, payload: torch.Tensor, recv: torch.Tensor,
+                      sig: torch.Tensor, comm, async_op: bool = False,
+                      tag: int = 0):
+        """The producer side: put dependency rows into each consumer's
+        receive buffer and raise its signal.
+
+        One point-to-point packet ``[rows | one flag row]`` per active ring
+        offset (offset index ``oi`` on tag ``tag + oi``), to ``(r + off) %
+        ndev``, and one from ``(r - off) % ndev``: the flag travels with
+        the rows, so the producer raises the signal.  Dead pairs still send
+        their masked rows (flag 0), so every rank runs the same schedule.
+        ``recv[src]`` is set and ``sig[src] += flag`` — in place, on the
+        tensors passed in.  Returns ``(recv, sig)``, or with ``async_op``
+        the push in flight.
+        """
+        if self.a2a_cap == 0:
+            return _result((recv, sig), async_op)
+        r, P = comm.rank, payload.shape[-1]
+        sends, recvs, srcs = [], [], []
+        for oi, (off, idx_tab, flag_tab) in enumerate(self._onesided_offsets):
+            block = payload[comm.constant(idx_tab)[r]]  # (cap, P)
+            flag = torch.full((1, P), float(flag_tab[r]), dtype=block.dtype,
+                              device=block.device)
+            packet = torch.cat([block, flag])
+            sends.append((packet, (r + off) % self.ndev, tag + oi))
+            src = (r - off) % self.ndev
+            recvs.append((packet, src, tag + oi))
+            srcs.append(src)
+
+        def finish(got):
+            for src, packet in zip(srcs, got):
+                recv[src] = packet[:-1]
+                sig[src] += packet[-1, 0].to(sig.dtype)
+            return recv, sig
+
+        pending = comm.p2p(sends, recvs, finish)
+        return pending if async_op else pending.wait()
+
+    def onesided_wait(self, recv: torch.Tensor, sig: torch.Tensor, t: int,
+                      payload: torch.Tensor) -> torch.Tensor:
+        """The consumer side: the masked wait + context assembly.
+
+        Receive slots whose producer has not signalled epoch ``t`` yet
+        read as zeros — which is also what makes the mode bit-exact with
+        the blocking ones: dead pairs and the t=0 epoch are masked
+        instead of synchronized away.
+        """
+        if self.a2a_cap == 0:
+            return payload
+        ready = sig >= int(t)
+        slots = torch.where(ready[:, None, None], recv,
+                            torch.zeros_like(recv))
+        return torch.cat([slots.reshape(self.ndev * self.a2a_cap, -1),
+                          payload])
+
+
+def _result(value, async_op: bool):
+    """``value``, or with ``async_op`` an exchange already done."""
+    return Done(value) if async_op else value
 
 
 def _padded_static_inputs(graph: TaskGraph, padded: int):

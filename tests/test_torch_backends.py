@@ -207,7 +207,8 @@ def test_cuda_fused_matches_reference_on_ragged_payload(oracle):
 
 # ------------------------------------------------------ registry, device
 def test_port_registry_is_its_own():
-    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-host",
+    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-csp",
+                                  "torch-host", "torch-pipeline",
                                   "torch-scan"]
     assert not set(tb.backend_names()) & set(ref_backends.backend_names())
 
@@ -225,11 +226,16 @@ def test_spec_grammar():
 KNOWN_OPTIONS = {"torch-scan": "\\['device'\\]",
                  "cuda-graph": "\\['device'\\]",
                  "cuda-fused": "\\['device', 'comm', 'ranks'\\]",
-                 "torch-host": "\\['schedule', 'workers', 'device'\\]"}
+                 "torch-host": "\\['schedule', 'workers', 'device'\\]",
+                 "torch-csp":
+                     "\\['comm', 'comm_overlap', 'ranks', 'device'\\]",
+                 "torch-pipeline":
+                     "\\['comm', 'comm_overlap', 'ranks', 'device'\\]"}
 
 
 @pytest.mark.parametrize("name", ["torch-scan", "cuda-fused", "cuda-graph",
-                                  "torch-host"])
+                                  "torch-host", "torch-csp",
+                                  "torch-pipeline"])
 def test_unknown_option_is_rejected_naming_the_key(name):
     with pytest.raises(ValueError, match="'devcie'.*known options: "
                                          + KNOWN_OPTIONS[name]):
@@ -240,7 +246,9 @@ def test_unknown_option_is_rejected_naming_the_key(name):
 
 @pytest.mark.parametrize("spec", ["torch-scan", "cuda-fused",
                                   "torch-scan[device=cuda]",
-                                  "cuda-fused[comm=onesided,ranks=4]"])
+                                  "cuda-fused[comm=onesided,ranks=4]",
+                                  "torch-csp", "torch-csp[ranks=4]",
+                                  "torch-pipeline[comm_overlap=True]"])
 def test_no_device_and_no_card_raises(monkeypatch, spec):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -286,7 +294,9 @@ def test_import_and_run_load_no_jax_or_reference_module():
         "g = make_graph(width=4, height=3, iterations=2)\n"
         "for b in ('torch-scan[device=cpu]', 'cuda-fused[device=cpu]',\n"
         "          'cuda-graph[device=cpu]', 'torch-host[device=cpu]',\n"
-        "          'torch-host[schedule=steal,workers=2,device=cpu]'):\n"
+        "          'torch-host[schedule=steal,workers=2,device=cpu]',\n"
+        "          'torch-csp[ranks=2,device=cpu]',\n"
+        "          'torch-pipeline[ranks=2,comm_overlap=True,device=cpu]'):\n"
         "    check_outputs(g, get_backend(b).run([g])[0])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

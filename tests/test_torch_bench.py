@@ -156,7 +156,9 @@ def test_run_scenario_default_backend_needs_a_card(monkeypatch):
 # ------------------------------------------------- the synthetic clock
 # each port backend beside the reference backend it counterparts
 PAIRS = [("torch-host", "host-dynamic"), ("torch-scan", "xla-scan"),
-         ("cuda-graph", "xla-static"), ("cuda-fused", "pallas-fused")]
+         ("cuda-graph", "xla-static"), ("cuda-fused", "pallas-fused"),
+         ("torch-csp", "shardmap-csp"),
+         ("torch-pipeline", "shardmap-pipeline")]
 
 
 def _graph_pair(**kw):
@@ -282,6 +284,38 @@ def test_imbalance_study_equals_reference_on_the_fake_clock(
     metric = {(x, v): m for x, v, _, _, m in curve}
     assert metric[(0.0, "static")] == metric[(0.0, "steal")] == 1.0
     assert metric[(2.0, "steal")] > metric[(2.0, "static")]
+
+
+def _payload_study(mod, backend):
+    timer = mod.study_timer(
+        mod.SyntheticTimer(),
+        seconds_per_byte=mod.studies.SECONDS_PER_BYTE,
+        seconds_per_rendezvous=mod.studies.SECONDS_PER_RENDEZVOUS)
+    return {(spec.output_bytes, spec.name.split(".")[2]):
+            mod.run_scenario(spec, timer=timer)
+            for spec in mod.payload_study_specs(backend)}
+
+
+@pytest.mark.parametrize("port,ref", [("torch-csp", "shardmap-csp"),
+                                      ("torch-pipeline",
+                                       "shardmap-pipeline")])
+def test_payload_study_equals_reference_on_the_fake_clock(
+        no_card_no_backend, port, ref):
+    """The communication-hiding study of ``metg_payload`` charges the
+    reference's seconds to the bit, with no card and no backend built."""
+    ours, want = _payload_study(pb, port), _payload_study(rb, ref)
+    assert sorted(ours) == sorted(want)
+    for key, res in ours.items():
+        assert res.spec.backend == want[key].spec.backend.replace(ref, port)
+        assert pb.elapsed_s(res) == rb.elapsed_s(want[key])
+    curve = [(p.x, p.variant, p.elapsed_s, p.rate, p.metric)
+             for p in pb.payload_curve(ours)]
+    assert curve == [(p.x, p.variant, p.elapsed_s, p.rate, p.metric)
+                     for p in rb.payload_curve(want)]
+    elapsed = {(x, v): e for x, v, e, _, _ in curve}
+    for ob in pb.studies.PAYLOAD_BYTES:
+        assert elapsed[(ob, "onesided")] <= elapsed[(ob, "overlap")] \
+            <= elapsed[(ob, "blocking")]
 
 
 def test_study_specs_and_metrics_match_reference():

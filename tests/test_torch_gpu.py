@@ -296,6 +296,61 @@ def test_torch_host_dispatch_never_syncs(cuda, spec, kind, ngraphs):
         assert np.array_equal(got.cpu().numpy(), w)
 
 
+CSP_SPECS = ["torch-csp[ranks=2]", "torch-csp[ranks=4]",
+             "torch-csp[comm_overlap=True,ranks=4]",
+             "torch-csp[comm=a2a,ranks=4]", "torch-csp[comm=onesided,ranks=4]",
+             "torch-csp[comm=onesided,comm_overlap=True,ranks=4]",
+             "torch-pipeline[ranks=4]"]
+
+
+def csp_graphs(kind, ngraphs, width=10):
+    return [make_graph(width=width, height=6, pattern=p, kernel=kind,
+                       iterations=5, imbalance=0.5, span_bytes=512,
+                       scratch_bytes=2048)
+            for p in ("stencil", "sweep", "fft")[:ngraphs]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ngraphs", [1, 3])
+@pytest.mark.parametrize("kind", ["empty", "compute", "memory",
+                                  "compute_mxu"])
+@pytest.mark.parametrize("spec", CSP_SPECS)
+def test_torch_csp_is_bitwise_with_torch_scan_on_card(cuda, spec, kind,
+                                                      ngraphs):
+    """Rank processes sharing the card (each rank's body K1 or K2 for its
+    columns, rows staged through host buffers over gloo) compute what
+    ``torch-scan`` does; ``run_many`` runs the combined program."""
+    graphs = csp_graphs(kind, ngraphs)
+    scan = get_backend("torch-scan")
+    for got, want in zip(get_backend(spec).run_many(graphs),
+                         scan.run_many(graphs)):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [10, 3])
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("kind", ["compute", "memory"])
+def test_torch_csp_launches_k1_or_k2_each_step_on_every_rank(cuda, kind,
+                                                             ranks, width):
+    """Each rank launches its kernel once a timestep a graph (width 3 over
+    4 ranks: one column a rank, the dynamic loop), counted by the ranks'
+    own wrapper counters."""
+    from repro_torch.backends import csp
+
+    key = "K1" if kind == "compute" else "K2"
+    be = get_backend(f"torch-csp[ranks={ranks}]")
+    for graphs in (csp_graphs(kind, 1, width), csp_graphs(kind, 3, width)):
+        runner = be.prepare_many(graphs)
+        pool = be.pool()
+        pool.call(csp.reset_launch_counts)
+        runner()
+        h = graphs[0].height * len(graphs)
+        want = {k: h if k == key else 0 for k in ("K1", "K2")}
+        assert pool.call(csp.launch_counts) == [want] * ranks
+        assert [s["launches"] for s in runner.stats[0]] == [want] * ranks
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pattern", ["stencil", "random", "spread"])
 def test_k3_grid_stride_matches_plain(cuda, pattern):
