@@ -110,7 +110,22 @@ raise on failure:
    gloo); the wall a timestep beside ``torch-scan``'s in turns; one
    profiled run a rank (kernel and copy time, idle share); METG of
    ``torch-csp[ranks=4]`` at CSP_METG_HEIGHT timesteps; and the payload
-   study at 4 ranks.
+   study at 4 ranks;
+11. the planner and the campaign, in PLANNER_BUDGET_S (120 s): ``python -m
+   repro_torch.bench.run --tune --timer synthetic`` regenerates the
+   committed ``TUNE_torch.json`` byte for byte; ``torch-auto`` on the three
+   main cases at full size and on a stencil graph of 4096-byte payloads
+   (resolved to ``torch-csp[comm=onesided]``, one rank process on one
+   card), the counts zeroed just before its runs and read just after, each
+   resolved spec printed, each output bitwise with its winner's own run
+   and the oracle, the host time of a resolve and the walls of
+   ``torch-auto`` and its winner in turns; METG of ``torch-auto`` beside
+   ``cuda-fused``'s of phase 6; the runner on the wall clock
+   (``bench_metg_patterns`` over ``torch-auto``, ``cuda-fused`` and
+   ``cuda-graph``; ``bench_metg_scaling`` on ``torch-csp`` at SCALING_RANKS
+   1, 2 and 4 ranks, cut from 1-8 for the budget), its artifacts read back
+   through the schema check; and a two-family suite on the synthetic clock
+   whose rollout is byte-equal to its first run.
 
 The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -118,7 +133,8 @@ gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
 (the launch floor K1's bound leaves out) alone and as a graph node; and the
 replayed run's device time and wall a timestep beside ``torch-scan``'s wall.
 The line before the last lists the kernels with their launches on the main
-path (and the path they were counted on), errors, times, bounds and
+path (and the path they were counted on; ``planner_launches``: through
+``torch-auto`` in phase 11, a rank's included), errors, times, bounds and
 (K5) the time of one library call for the same function; for K5 and K6,
 whose main paths are bf16, the bf16 kernel's (K6's summed over its three
 passes, its bound at the bf16 tensor-core peak).  The
@@ -127,9 +143,13 @@ printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import filecmp
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -151,6 +171,9 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     taskbench_fused, taskbench_fused_plain, taskbench_onesided,
     taskbench_onesided_plain)
 from repro_torch.backends import csp  # noqa: E402
+from repro_torch.bench import run as bench_run  # noqa: E402
+from repro_torch.bench import suite as bench_suite  # noqa: E402
+from repro_torch.bench import tuner  # noqa: E402
 from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
                                compute_metg, elapsed_s, imbalance_study_specs,
                                mitigation_curve, payload_curve,
@@ -202,6 +225,14 @@ CSP_WALL_RUNS = 2  # later runs of the stencil, in turns with torch-scan
 # a torch-csp[ranks=4] step takes ~1.6-2.1 ms on an H100 host, so its METG
 # sweep (7 points x 4 runs) is cut in height: at H=1000 it took 52 s
 CSP_METG_HEIGHT = 250
+# phase 11: the planner and the campaign, in at most PLANNER_BUDGET_S.  Its
+# cuts: the wall-clock scaling sweep stops at SCALING_RANKS on one card
+# (the synthetic artifact keeps 1, 2, 4 and 8 ranks), and the walls of
+# torch-auto against its winner are PLANNER_WALL_RUNS runs each
+PLANNER_BUDGET_S = 120
+SCALING_RANKS = "1,2,4"
+PLANNER_WALL_RUNS = 2
+PLANNER_RESOLVES = 100  # resolves timed for the host time of one
 PROFILE_WINDOWS = 10  # ``timed``: 1 + the windows it may rerun when one
 # misses kernels or disagrees with the others
 TIMED_WINDOWS = 3  # profiled windows whose median ``timed`` reports; for a
@@ -592,12 +623,15 @@ GRAPHS = {
     "spread": dict(pattern="spread", kernel="compute", iterations=MAIN_ITERS,
                    radix=5),
     "sweep": dict(pattern="sweep", kernel="compute", iterations=MAIN_ITERS),
+    # a payload that torch-auto sends to torch-csp[comm=onesided] (phase 11)
+    "stencil_4096B": dict(pattern="stencil", kernel="compute",
+                          iterations=MAIN_ITERS, output_bytes=4096),
 }
 
 
 def full_size(name: str, height: int = HEIGHT):
-    return make_graph(width=WIDTH, height=height, output_bytes=16,
-                      **GRAPHS[name])
+    return make_graph(width=WIDTH, height=height,
+                      **{"output_bytes": 16, **GRAPHS[name]})
 
 
 def oracle(name: str, height: int = HEIGHT) -> np.ndarray:
@@ -618,6 +652,7 @@ def main() -> int:
                                                          HOST_HEIGHT)
                         for name in ORACLE_GRAPHS})
         oracles["sweep"] = pool.submit(oracle, "sweep")
+        oracles["stencil_4096B"] = pool.submit(oracle, "stencil_4096B")
         kernels = run_phases(full_size("stencil"), full_size("nearest"),
                              full_size("memory"), oracles)
     print(f"\ntotal time {time.perf_counter() - t_all:.3f} s")
@@ -1118,6 +1153,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
          "memory": [memory]}, oracles,
         {key: outs[label, "torch-scan"] for label, key, _ in cases},
         results, sms, card, counters)
+    planner_launches = planner_phase(
+        (("stencil", "stencil", [stencil]),
+         ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
+         ("memory 1 MiB", "memory", [memory]),
+         ("stencil 4096 B", "stencil_4096B", [full_size("stencil_4096B")])),
+        oracles, results, sms, card, counters)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1140,6 +1181,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "replaces": meta[k][2], "launches": launches[k],
              "launches_on": launches_on[k],
              "rank_launches": rank_launches.get(k, {}),
+             "planner_launches": planner_launches.get(k, 0),
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device}
@@ -1494,6 +1536,193 @@ def csp_phase(cases: dict, oracles: dict, scan_outs: dict, metg: dict,
     print(f"   ({card})")
     done(t0)
     return rank_launches
+
+
+def quietly(main, argv: list) -> str:
+    """Run a CLI ``main(argv)`` in this process; its standard output, or
+    an AssertionError naming it and its exit code."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    except SystemExit as e:
+        raise AssertionError(f"{' '.join(argv)} exited {e.code}:\n"
+                             f"{buf.getvalue()[-2000:]}") from None
+    return buf.getvalue()
+
+
+def planner_phase(cases: tuple, oracles: dict, metg: dict, sms: int,
+                  card: str, counters: dict) -> dict:
+    """``torch-auto`` and the tuner, the runner and the suite: (a) ``--tune
+    --timer synthetic`` regenerates the committed table byte for byte; (b)
+    ``torch-auto`` at full size on the main cases and a stencil graph of
+    4096-byte payloads (a ``torch-csp[comm=onesided]`` winner, one rank
+    process on one card), the counts zeroed just before its runs and read
+    just after, each output bitwise with its winner's own run and the
+    oracle, the host time of a resolve, and the walls of ``torch-auto``
+    and of its winner in turns; (c) METG of ``torch-auto`` beside
+    ``cuda-fused``'s of phase 6; (d) the runner on the wall clock
+    (``bench_metg_patterns`` and ``bench_metg_scaling`` at SCALING_RANKS),
+    its artifacts read back through the schema check; (e) a two-family
+    suite on the synthetic clock whose rollout byte-compare passes.
+    Returns each kernel's launches through ``torch-auto`` (a rank's
+    included)."""
+    t0 = phase(f"11. planner and campaign (budget {PLANNER_BUDGET_S} s): "
+               f"--tune, torch-auto at W={WIDTH} H={HEIGHT}, its METG, the "
+               f"runner on the wall clock, a suite")
+    out = ROOT / "build" / "planner"
+    shutil.rmtree(out, ignore_errors=True)
+
+    # -- (a) the table --------------------------------------------------
+    t1 = time.perf_counter()
+    quietly(bench_run.main, ["--tune", "--timer", "synthetic",
+                             "--artifacts", str(out / "tune")])
+    fresh = out / "tune" / "TUNE_torch.json"
+    if not filecmp.cmp(fresh, tuner.default_table_path(), shallow=False):
+        raise AssertionError("--tune --timer synthetic wrote a table other "
+                             "than the committed TUNE_torch.json")
+    table = tuner.load_tuning_table(None)
+    print(f"   (a) --tune --timer synthetic: {len(table.keys())} entries, "
+          f"byte-equal to the committed table "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    # -- (b) torch-auto at full size -------------------------------------
+    auto = get_backend("torch-auto")
+    for fn in counters.values():
+        fn.launches = 0
+    runs, rank_k1 = {}, 0
+    for label, key, graphs in cases:
+        spec = auto.resolve_spec(graphs)
+        t1 = time.perf_counter()
+        for _ in range(PLANNER_RESOLVES):
+            auto.resolve_spec(graphs)
+        resolve_us = (time.perf_counter() - t1) / PLANNER_RESOLVES * 1e6
+        t1 = time.perf_counter()
+        runner = auto.prepare_many(graphs)
+        be = auto.delegate(graphs)
+        if hasattr(be, "pool"):
+            be.pool().call(csp.reset_launch_counts)
+        t2 = time.perf_counter()
+        got = runner()
+        t3 = time.perf_counter()
+        if hasattr(be, "pool"):
+            ranks = be.pool().call(csp.launch_counts)
+            rank_k1 += sum(r["K1"] for r in ranks)
+            print(f"     {spec}: {len(ranks)} rank(s), launches {ranks}")
+        runs[label] = (spec, runner, got)
+        print(f"   (b) {label}: torch-auto resolves to {spec} "
+              f"({resolve_us:.3f} us of host a resolve, mean of "
+              f"{PLANNER_RESOLVES}); prepare {(t2 - t1) * 1e3:.3f} ms, first "
+              f"run {(t3 - t2) * 1e3:.3f} ms")
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts["K1"] += rank_k1
+    print(f"   launches on the torch-auto path: {counts} (K1 in the ranks: "
+          f"{rank_k1})")
+    winners = {spec for spec, _, _ in runs.values()}
+    for spec, k in (("cuda-fused", "K3"), ("torch-csp[comm=onesided]",
+                                           "K1")):
+        if spec not in winners:
+            raise AssertionError(f"no case resolved to {spec}: {winners}")
+        if counts[k] == 0:
+            raise AssertionError(f"{k} was never launched on the torch-auto "
+                                 f"path (winner {spec})")
+    for label, key, graphs in cases:
+        spec, runner, got = runs[label]
+        winner = get_backend(spec).prepare_many(graphs)
+        want = winner()
+        ref = oracles[key].result()
+        for g, a, b in zip(graphs, got, want):
+            check_outputs(g, a, expected=ref)
+            if not (np.array_equal(a, b) and np.array_equal(a, ref)):
+                raise AssertionError(f"{label}: torch-auto differs from its "
+                                     f"winner {spec} or the oracle")
+        walls = {"torch-auto": [], spec: []}
+        for _ in range(PLANNER_WALL_RUNS):
+            for name, fn in (("torch-auto", runner), (spec, winner),
+                             (spec, winner), ("torch-auto", runner)):
+                t1 = time.perf_counter()
+                fn()
+                walls[name].append(time.perf_counter() - t1)
+        a, w = (float(np.median(walls[n])) * 1e3 for n in walls)
+        print(f"     {label}: bitwise with {spec}'s own run and the oracle; "
+              f"wall a run (median of {2 * PLANNER_WALL_RUNS}, in turns): "
+              f"torch-auto {a:.3f} ms, {spec} {w:.3f} ms ({a / w:.4f}x)")
+        del winner
+    del runs
+
+    # -- (c) METG of torch-auto ------------------------------------------
+    t1 = time.perf_counter()
+    spec = ScenarioSpec(
+        name="metg.torch-auto.stencil", backend="torch-auto",
+        pattern="stencil", kernel="compute", width=WIDTH, height=HEIGHT,
+        cores=sms, sweep=SweepControls(iterations_hi=4096, n_points=7,
+                                       repeats=3, warmup=1))
+    res = run_scenario(spec)
+    fused = metg["cuda-fused"]
+    resolved = sorted({auto.resolve_spec(spec.graphs(it))
+                       for it in spec.sweep.iteration_schedule()})
+    m = res.metg_s
+    print(f"   (c) METG of torch-auto (every point resolves to {resolved}): "
+          f"{m * 1e6 if m else None} us; cuda-fused's of phase 6 "
+          f"{fused.metg_s * 1e6 if fused.metg_s else None} us "
+          f"({time.perf_counter() - t1:.3f} s)")
+    for p in sorted(res.points, key=lambda p: -p.iterations):
+        print(f"     iterations {p.iterations:5d}: wall {p.wall_time:.6e} s, "
+              f"granularity {p.granularity * 1e6:.6f} us, efficiency "
+              f"{p.efficiency:.4f}")
+    common = max(res.peak_rate, fused.peak_rate)
+    m = compute_metg(res.points, peak_rate=common).metg
+    print(f"     against the better peak of the two ({common:.6e} FLOP/s): "
+          f"METG {m * 1e6 if m else None} us")
+
+    # -- (d) the runner on the wall clock --------------------------------
+    for family, backends, extra in (
+            ("bench_metg_patterns", "torch-auto,cuda-fused,cuda-graph", []),
+            ("bench_metg_scaling", "torch-csp", ["--ranks", SCALING_RANKS])):
+        t1 = time.perf_counter()
+        arts = out / family
+        text = quietly(bench_run.main, [
+            "--only", family, "--smoke", "--timer", "wallclock",
+            "--backends", backends, "--artifacts", str(arts)] + extra)
+        names = sorted(os.listdir(arts))
+        for name in names:
+            doc = read_bench_json(str(arts / name))
+            if doc["kind"] == "metg_scaling" and \
+                    [c["devices"] for c in doc["cells"]] != \
+                    [int(n) for n in SCALING_RANKS.split(",")]:
+                raise AssertionError(f"{name}: cells ran on "
+                                     f"{[c['devices'] for c in doc['cells']]}"
+                                     f" rank processes")
+        argv = " ".join(["--backends", backends] + extra)
+        print(f"   (d) --only {family} --smoke --timer wallclock {argv}: "
+              f"{len(names)} artifacts, each read back through the schema "
+              f"check ({time.perf_counter() - t1:.3f} s)")
+        for line in text.splitlines()[1:]:
+            if not line.startswith("artifact,"):
+                print(f"     {line}")
+    close_pools()
+
+    # -- (e) a two-family suite, rollouts byte-compared ------------------
+    t1 = time.perf_counter()
+    toml = out / "two.toml"
+    toml.write_text('name = "two"\nparallel = 3\ntimer = "synthetic"\n'
+                    '[[tasks]]\nfamily = "bench_metg_patterns"\n'
+                    'rollouts = 2\n[[tasks]]\nfamily = "bench_metg_payload"\n')
+    text = quietly(bench_suite.main, [str(toml), "--smoke", "--artifacts",
+                                      str(out / "suite")])
+    summary = [ln for ln in text.splitlines() if ln.startswith("suite,")]
+    if "all ok" not in summary[-1]:
+        raise AssertionError(f"suite: {summary}")
+    print(f"   (e) suite of bench_metg_patterns (rollouts = 2) and "
+          f"bench_metg_payload on the synthetic clock: "
+          f"{summary[-1].split(',', 2)[2]}, the rollout byte-equal "
+          f"({time.perf_counter() - t1:.3f} s)")
+    print(f"   ({card})")
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {PLANNER_BUDGET_S} s budget"
+          + ("" if took <= PLANNER_BUDGET_S else " (OVER BUDGET)"),
+          flush=True)
+    return counts
 
 
 def graph_times(runner, scan_runner, k1_call, k1_alone: Timing,

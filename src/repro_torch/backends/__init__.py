@@ -8,6 +8,7 @@
 | cuda-fused     | pallas-fused      | in-kernel, one launch      | O(1) per GRAPH             |
 | torch-csp      | shardmap-csp      | rank processes, msgs/step  | O(ops) per step per rank   |
 | torch-pipeline | shardmap-pipeline | rank processes, ring/step  | O(ops) per step per rank   |
+| torch-auto     | auto              | table-driven (the planner) | delegated                  |
 
 Every backend runs every graph (pattern x kernel x payload x imbalance)
 unchanged and is validated against the numpy oracle in ``core.validate``.
@@ -16,7 +17,8 @@ The registry is the port's own (``base._BACKENDS``).
 from .base import (Backend, StackedProgramBackend, backend_names,
                    backend_option_signature, canonical_backend_spec,
                    get_backend, parse_backend_spec, register_backend,
-                   resolve_device)
+                   resolve_device, with_options)
+from .auto import AutoBackend
 from .csp import CSPBackend, PlannedSPMDBackend
 from .dataflow import DataflowBackend
 from .host import HostBackend
@@ -34,6 +36,8 @@ __all__ = [
     "parse_backend_spec",
     "register_backend",
     "resolve_device",
+    "with_options",
+    "AutoBackend",
     "CSPBackend",
     "DataflowBackend",
     "HostBackend",

@@ -103,6 +103,15 @@ def canonical_backend_spec(spec: str) -> str:
     return f"{name}[{opts}]"
 
 
+def with_options(spec: str, **options) -> str:
+    """``spec`` with ``options`` set, in canonical form:
+    ``with_options("torch-csp[comm=a2a]", ranks=4)`` ->
+    ``"torch-csp[comm=a2a,ranks=4]"``."""
+    name, kwargs = parse_backend_spec(spec)
+    opts = ",".join(f"{k}={v}" for k, v in {**kwargs, **options}.items())
+    return canonical_backend_spec(f"{name}[{opts}]")
+
+
 def backend_option_signature(name: str) -> Dict[str, object]:
     """The registered backend's constructor options and their defaults."""
     if name not in _BACKENDS:

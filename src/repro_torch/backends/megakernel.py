@@ -21,7 +21,8 @@ tensor, K3 on a CUDA tensor), ``taskbench_fused_plain`` its plain PyTorch
 version.
 
 ``cuda-fused[comm=onesided,ranks=N]`` is the multi-rank form (counterpart
-of ``pallas-fused[comm=onesided]``): columns are blocked over N ranks by
+of ``pallas-fused[comm=onesided]``; N defaults to the card count, or 1 on
+the CPU, as the reference's defaults to its devices): columns are blocked over N ranks by
 the one-sided ``CommPlan`` (``dist.collectives``), and each graph runs as
 one launch of K4 (``kernels/csrc/onesided.cu``), in which every rank is a
 CTA that puts its dependency rows into its consumers' inboxes as tagged
@@ -365,17 +366,22 @@ class MegakernelBackend(StackedProgramBackend):
             raise ValueError(
                 f"cuda-fused comm must be 'onesided' (or omitted for the "
                 f"single-rank fused kernel), got {comm!r}")
+        if comm != "onesided" and ranks is not None:
+            raise ValueError(f"cuda-fused ranks={ranks!r} needs "
+                             f"comm=onesided")
+        super().__init__(device)
         if comm == "onesided":
+            if ranks is None:
+                # the reference takes its rank count from the devices; here
+                # as torch-csp does: the cards, or one rank on the CPU
+                ranks = (torch.cuda.device_count()
+                         if self.device.type == "cuda" else 1)
             if isinstance(ranks, bool) or not isinstance(ranks, int) \
                     or ranks < 1:
                 raise ValueError(f"cuda-fused[comm=onesided] needs ranks, a "
                                  f"positive int, got {ranks!r}")
-        elif ranks is not None:
-            raise ValueError(f"cuda-fused ranks={ranks!r} needs "
-                             f"comm=onesided")
         self.comm = comm
         self.ranks = ranks
-        super().__init__(device)
 
     @staticmethod
     def _tables(graphs: Sequence[TaskGraph], radix: int):

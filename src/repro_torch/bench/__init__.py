@@ -12,6 +12,15 @@
                  load-imbalance (``metg_imbalance``) scenario families
                  and their derived metrics (overlap efficiency,
                  mitigation factor)
+- ``tuner``    — the self-tuning planner behind ``torch-auto``: tuning
+                 keys, the mode-space sweep and the committed table
+- ``scaling``  — the ``metg_scaling`` weak-scaling family (paper §V-D/E),
+                 every rank count in this process
+- ``suite``    — the declarative campaign: a TOML file of families run
+                 as ``python -m repro_torch.bench.run`` subprocesses
+                 (its CLI, ``python -m repro_torch.bench.suite``, so the
+                 package does not import it)
+- ``run``      — the runner of the bench families (``bench.families``)
 
 Multi-graph scenarios (``ngraphs >= 2``) execute concurrently through
 ``Backend.run_many``.
@@ -32,6 +41,13 @@ from .studies import (StudyPoint, elapsed_s, imbalance_spec,
                       mitigation_factor, observed_rate, overlap_efficiency,
                       payload_curve, payload_spec, payload_study_specs,
                       study_timer)
+from .tuner import (TuningKey, TuningTable, auto_resolve, build_tuning_table,
+                    diff_tuning_tables, enumerate_mode_space,
+                    granularity_bucket, graphs_cutout, load_tuning_table,
+                    payload_bucket, read_tuning_json, spec_cutout,
+                    validate_tuning_table, write_tuning_json)
+from .scaling import (RANKS, SCALING_BACKENDS, ScalingResult, ScalingSpec,
+                      run_scaling, scaling_artifact, write_scaling_json)
 
 __all__ = [
     "METGResult",
@@ -72,4 +88,25 @@ __all__ = [
     "payload_spec",
     "payload_study_specs",
     "study_timer",
+    "TuningKey",
+    "TuningTable",
+    "auto_resolve",
+    "build_tuning_table",
+    "diff_tuning_tables",
+    "enumerate_mode_space",
+    "granularity_bucket",
+    "graphs_cutout",
+    "load_tuning_table",
+    "payload_bucket",
+    "read_tuning_json",
+    "spec_cutout",
+    "validate_tuning_table",
+    "write_tuning_json",
+    "RANKS",
+    "SCALING_BACKENDS",
+    "ScalingResult",
+    "ScalingSpec",
+    "run_scaling",
+    "scaling_artifact",
+    "write_scaling_json",
 ]

@@ -300,6 +300,14 @@ class SyntheticTimer:
         return max(compute, comm) if (overlap or onesided) else compute + comm
 
     def measure(self, backend_name: str, graphs: Sequence[TaskGraph]) -> float:
+        # "torch-auto" is the planner, not a cost model: resolve it to the
+        # tuning table's winner first (a pure lookup — tuner.auto_resolve
+        # uses ndev=1 here so fake-clock artifacts stay machine-
+        # independent) and charge THAT backend's model.  Other specs pass
+        # through unchanged, so the default path stays backend-free.
+        from .tuner import auto_resolve
+
+        backend_name = auto_resolve(backend_name, graphs)
         if backend_dispatch_model(backend_name) == "per-launch":
             # one launch for the whole batch (the stacked grid covers all
             # graphs); dependencies are in-kernel refs, so no comm term.

@@ -82,7 +82,7 @@ def close(got, want, tol):
 
 # ------------------------------------------------------- K5, plain version
 @pytest.mark.parametrize("case", range(len(ATTN_CASES)))
-def test_plain_matches_reference_kernel_interpret(case):
+def test_plain_matches_reference_kernel_interpret(case, monkeypatch):
     B, Sq, Skv, Hq, Hkv, D, causal, win, qoff, bf16 = ATTN_CASES[case]
     j, t = both(qkv(B, Sq, Skv, Hq, Hkv, D, seed=case), bf16)
     o_r = rops.attention(*j, causal=causal, window=win, q_offset=qoff,
@@ -91,12 +91,24 @@ def test_plain_matches_reference_kernel_interpret(case):
                                     q_offset=qoff)
     assert o_p.dtype == t[0].dtype and o_p.shape == t[0].shape
     close(o_p, o_r, BF16_TOL if bf16 else F32_TOL)
-    # the wrapper takes the plain version for CPU tensors, uncounted
+    # the wrapper takes the plain version for CPU tensors, uncounted: held
+    # by a spy, since two calls of the plain version on a multithreaded
+    # CPU BLAS may split their reductions differently
+    calls = []
+    real = tfa.flash_attention_plain
+
+    def plain(*args):
+        calls.append((args, real(*args)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(tfa, "flash_attention_plain", plain)
     n = tfa.flash_attention.launches
     o_w = tfa.flash_attention(*t, causal=causal, window=win, q_offset=qoff,
                               block_q=64, block_k=64)
     assert tfa.flash_attention.launches == n
-    assert torch.equal(o_w, o_p)
+    assert len(calls) == 1 and o_w is calls[0][1]
+    assert all(a is b for a, b in zip(calls[0][0], t))
+    assert calls[0][0][3:6] == (causal, win, qoff)
 
 
 @pytest.mark.parametrize("S", [37, 100])

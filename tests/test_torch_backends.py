@@ -207,8 +207,8 @@ def test_cuda_fused_matches_reference_on_ragged_payload(oracle):
 
 # ------------------------------------------------------ registry, device
 def test_port_registry_is_its_own():
-    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-csp",
-                                  "torch-host", "torch-pipeline",
+    assert tb.backend_names() == ["cuda-fused", "cuda-graph", "torch-auto",
+                                  "torch-csp", "torch-host", "torch-pipeline",
                                   "torch-scan"]
     assert not set(tb.backend_names()) & set(ref_backends.backend_names())
 

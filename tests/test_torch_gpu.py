@@ -351,6 +351,53 @@ def test_torch_csp_launches_k1_or_k2_each_step_on_every_rank(cuda, kind,
         assert [s["launches"] for s in runner.stats[0]] == [want] * ranks
 
 
+# chip_smoke.py phase 11's graphs at a small size: (make_graph kwargs,
+# graphs, the winner torch-auto resolves them to, the kernel it launches)
+AUTO_CASES = {
+    "stencil": (dict(pattern="stencil", iterations=16), 1, "cuda-fused",
+                "K3"),
+    "nearest_x4": (dict(pattern="nearest", iterations=16, radix=5), 4,
+                   "cuda-fused", "K3"),
+    "memory": (dict(pattern="stencil", kernel="memory", iterations=4,
+                    span_bytes=4096, scratch_bytes=1 << 16), 1,
+               "cuda-fused", "K3"),
+    "stencil_4096B": (dict(pattern="stencil", iterations=16,
+                           output_bytes=4096), 1,
+                      "torch-csp[comm=onesided]", "K1"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(AUTO_CASES))
+def test_torch_auto_is_bitwise_with_its_winner_on_card(cuda, case):
+    """``torch-auto`` only delegates: on the card its outputs are its
+    winner's own and the oracle's, and the winner's kernel runs (K3 in
+    ``cuda-fused``; K1 in the one ``torch-csp`` rank the card count gives
+    it)."""
+    from repro_torch.backends import csp
+    from repro_torch.core import execute_reference
+
+    kw, n, winner, kernel = AUTO_CASES[case]
+    graphs = replicate(make_graph(width=12, height=6, **kw), n)
+    auto = get_backend("torch-auto")
+    assert auto.resolve_spec(graphs) == winner
+    runner = auto.prepare_many(graphs)
+    if kernel == "K3":
+        before = taskbench_fused.launches
+        got = runner()
+        assert taskbench_fused.launches == before + 1
+    else:
+        be = auto.delegate(graphs)
+        assert be.ndev == torch.cuda.device_count()
+        be.pool().call(csp.reset_launch_counts)
+        got = runner()
+        assert be.pool().call(csp.launch_counts)[0]["K1"] == graphs[0].height
+    want = get_backend(winner).run_many(graphs)
+    for g, a, b in zip(graphs, got, want):
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, execute_reference(g))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pattern", ["stencil", "random", "spread"])
 def test_k3_grid_stride_matches_plain(cuda, pattern):

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.backends as tb  # noqa: E402
+from repro_torch.backends import megakernel  # noqa: E402
 from repro_torch.backends.megakernel import (  # noqa: E402
     MegakernelBackend, onesided_tables_from_numpy, taskbench_onesided,
     taskbench_onesided_plain)
@@ -125,9 +126,18 @@ def test_onesided_options():
         is None
 
 
+def test_onesided_ranks_default_to_one_on_the_cpu(oracle):
+    """As the reference's takes its rank count from the devices, and as
+    ``torch-csp`` defaults: the card count, or one rank on the CPU."""
+    be = tb.get_backend("cuda-fused[comm=onesided,device=cpu]")
+    assert (be.comm, be.ranks) == ("onesided", 1)
+    g = make_graph(width=5, height=4, pattern="stencil", iterations=3)
+    np.testing.assert_array_equal(be.run([g])[0], oracle(g))
+
+
 @pytest.mark.parametrize("spec,match", [
     ("cuda-fused[comm=halo,device=cpu]", "comm must be 'onesided'"),
-    ("cuda-fused[comm=onesided,device=cpu]", "needs ranks"),
+    ("cuda-fused[comm=onesided,ranks=-1,device=cpu]", "needs ranks"),
     ("cuda-fused[comm=onesided,ranks=0,device=cpu]", "needs ranks"),
     ("cuda-fused[comm=onesided,ranks=2.5,device=cpu]", "needs ranks"),
     ("cuda-fused[comm=onesided,ranks=True,device=cpu]", "needs ranks"),
@@ -145,14 +155,25 @@ def staged(g, ranks, device="cpu"):
     return offsets, tabs, onesided_tables_from_numpy(offsets, tabs, device)
 
 
-def test_cpu_wrapper_runs_plain_and_counts_no_launch():
+def test_cpu_wrapper_runs_plain_and_counts_no_launch(monkeypatch):
     g = make_graph(width=6, height=5, pattern="fft", iterations=3)
     _, _, tabs = staged(g, 3)
     kw = dict(kernel=g.kernel, height=5, payload_elems=g.payload_elems)
+    # the wrapper takes the plain version, held by a spy rather than by a
+    # second call of the plain version
+    calls = []
+
+    def plain(*args, **kwargs):
+        calls.append((args, kwargs, taskbench_onesided_plain(*args,
+                                                             **kwargs)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(megakernel, "taskbench_onesided_plain", plain)
     before = taskbench_onesided.launches
     got = taskbench_onesided(*tabs, **kw)
     assert taskbench_onesided.launches == before
-    assert torch.equal(got, taskbench_onesided_plain(*tabs, **kw))
+    assert len(calls) == 1 and got is calls[0][2]
+    assert all(a is b for a, b in zip(calls[0][0], tabs))
     assert got.shape == (6, g.payload_elems)
 
 
