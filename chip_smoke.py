@@ -73,14 +73,20 @@ raise on failure:
    of the five;
 7. the serving path: ``mamba2-2.7b`` at full width (64 layers, bf16,
    random weights from seed 0) served by ``ServeEngine(batch_slots=4,
-   chunk_size=8)`` on six requests, the launch counts zeroed just before
-   and read just after; chunked and host decode give the same tokens, a
-   request served alone the same tokens as in the batch, K6 runs once a
-   layer for every prefill of more than one token, and the last prefill
-   logits with K6 agree with the same forward on ``ssd_chunked_plain``
-   (in float32 within 1e-4; in bf16 only a guard, see LOGITS_BF16_RTOL);
-   time to first token, the decode rate at 4 live slots and the profiles
-   of one decode step and of the 1000-token prefill are printed;
+   chunk_size=8)`` on six requests in three ways: chunked and host with
+   the decode step captured as a CUDA graph (capture and instantiation
+   times, graph pool printed) and chunked eager; the launch counts zeroed
+   just before the chunked captured serve and read just after; all three
+   give the same tokens (the chunked ones the same stats), a request
+   served alone the same tokens as in the batch, K6 runs once a layer for
+   every prefill of more than one token, and the last prefill logits with
+   K6 agree with the same forward on ``ssd_chunked_plain`` (in float32
+   within 1e-4; in bf16 only a guard, see LOGITS_BF16_RTOL); time to first
+   token, the decode rate at 4 live slots captured beside eager (in
+   turns), one profiled tick of each captured engine (exactly ``steps``
+   ``cudaGraphLaunch`` calls, one in host mode, and no kernel launch from
+   the host) and the profiles of one eager decode step, one replayed step
+   and the 1000-token prefill are printed;
 8. the same for ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU
    and 8 local-attention, bf16, random weights from seed 0) with
    ``max_len=4096``, so every local-attention layer has a ring cache and
@@ -125,8 +131,19 @@ raise on failure:
    ``cuda-graph``; ``bench_metg_scaling`` on ``torch-csp`` at SCALING_RANKS
    1, 2 and 4 ranks, cut from 1-8 for the budget), its artifacts read back
    through the schema check; and a two-family suite on the synthetic clock
-   whose rollout is byte-equal to its first run.
-
+   whose rollout is byte-equal to its first run;
+12. dense serving and the serving family, in DENSE_BUDGET_S (150 s):
+   ``bench_serve_load`` on the wall clock at ``--smoke`` (the reference's
+   reduced ``qwen1.5-0.5b``, the decode step captured), its six artifacts
+   read back through the schema check; the family's rate-2000 cells,
+   chunked and host, with ``qwen1.5-0.5b`` at full width through
+   ``run_engine_load``; ``yi-6b`` and ``minitron-8b`` at full width
+   serving prompts of 5 to 1000 tokens, captured and eager decode giving
+   the same tokens, the decode rate at 4 live slots captured beside eager;
+   and ``qwen2-72b`` cut to QWEN72_LAYERS (32) of its 80 layers (61 GB of
+   its 145 GB in bf16), one 1000-token prefill and a captured chunk
+   against eager.  Dense prefill runs the attention oracle (a tensor
+   cursor), as the reference does, so no kernel of K1-K6 runs here.
 The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
 ``cuda-graph`` stencil run beside K1 alone; an empty kernel with K1's grid
@@ -146,6 +163,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import filecmp
+import gc
 import io
 import json
 import os
@@ -178,7 +196,10 @@ from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
                                compute_metg, elapsed_s, imbalance_study_specs,
                                mitigation_curve, payload_curve,
                                payload_study_specs, read_bench_json,
-                               run_scenario, write_bench_json)
+                               run_engine_load, run_scenario,
+                               write_bench_json)
+from repro_torch.bench.families import (  # noqa: E402
+    bench_serve_load as serve_load_family)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
@@ -257,6 +278,12 @@ SSD_TOL = 1e-4  # float32: the same products summed in another order
 # (tests/test_torch_ssm.py::test_bf16_rounding_cascade_dwarfs_f32_drift)
 LOGITS_F32_RTOL, LOGITS_BF16_RTOL = 1e-4, 0.25
 SERVE_SLOTS, SERVE_CHUNK = 4, 8
+# phase 12: the serving family and the dense configurations, in at most
+# DENSE_BUDGET_S; qwen2-72b (145 GB in bf16) cut to QWEN72_LAYERS layers
+# (61 GB), yi-6b and minitron-8b whole
+DENSE_BUDGET_S = 150
+QWEN72_LAYERS = 32
+DENSE_REQS = ((1000, 16), (300, 24), (37, 16), (5, 20))
 # K5: tests/test_kernels.py's ATTN_CASES, ragged lengths, fully masked rows
 # (a causal q_offset < 0), shapes the tensor-core kernel's 128 x 64 tiles
 # can get wrong, then the full-width RecurrentGemma-2B prefill
@@ -1159,6 +1186,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
          ("memory 1 MiB", "memory", [memory]),
          ("stencil 4096 B", "stencil_4096B", [full_size("stencil_4096B")])),
         oracles, results, sms, card, counters)
+    dense_phase(dev, card)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1897,6 +1925,90 @@ def leaves(tree):
         yield tree
 
 
+def served(eng, batch):
+    """Submit ``batch`` to ``eng`` and drain it; (tokens a request, the
+    finished requests, the stats this serve added, wall s)."""
+    before = dict(eng.stats)
+    rids = [eng.submit(p, max_new_tokens=m) for p, m in batch]
+    results, finished = {}, []
+    t = time.perf_counter()
+    while eng.has_work:
+        finished += eng.step(results)
+    wall = time.perf_counter() - t
+    by_rid = {r.rid: r for r in finished}
+    return ([results[r] for r in rids], [by_rid[r] for r in rids],
+            {k: v - before[k] for k, v in eng.stats.items()}, wall)
+
+
+def serve_engines(cfg, params, max_len: int) -> dict:
+    """The three engines a serving phase runs: chunked and host with the
+    decode step captured, chunked eager (the baseline); the captures'
+    times, pools and K5/K6 nodes printed."""
+    engines = {}
+    for label, mode, graphs in (("chunked captured", "chunked", True),
+                                ("host captured", "host", True),
+                                ("chunked eager", "chunked", False)):
+        t = time.perf_counter()
+        engines[label] = eng = ServeEngine(
+            cfg, params, batch_slots=SERVE_SLOTS, max_len=max_len,
+            chunk_size=SERVE_CHUNK, decode_mode=mode, graphs=graphs)
+        p = eng.program
+        if graphs:
+            print(f"   {label}: engine built in "
+                  f"{time.perf_counter() - t:.3f} s, capture "
+                  f"{p.capture_s * 1e3:.3f} ms, instantiate "
+                  f"{p.instantiate_s * 1e3:.3f} ms, graph pool "
+                  f"{p.pool_bytes / 2**20:.3f} MiB, K5/K6 nodes {p.nodes}")
+    return engines
+
+
+def pinned_tick(eng, mode: str) -> int:
+    """One decode tick with no admission or completion under the
+    profiler: exactly ``steps`` ``cudaGraphLaunch`` calls (one in host
+    mode) and no kernel launch from the host; returns the steps."""
+    before = eng.stats["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if eng.step() != []:
+            raise AssertionError("the pinned tick completed a request")
+    steps = eng.stats["decode_steps"] - before
+    graphs = len(host_calls(prof, "cudaGraphLaunch"))
+    kernels = host_calls(prof, "LaunchKernel")
+    copies = len(host_calls(prof, "cudaMemcpy"))
+    if graphs != steps or kernels or steps != (
+            SERVE_CHUNK if mode == "chunked" else 1):
+        raise AssertionError(f"{mode} tick: {steps} steps, {graphs} graph "
+                             f"launches, kernel launches {kernels}")
+    print(f"   {mode} captured, one tick profiled: {steps} decode steps, "
+          f"{graphs} cudaGraphLaunch, no kernel launch from the host, "
+          f"{copies} cudaMemcpy calls")
+    return steps
+
+
+def decode_rate(eng, cfg, rng, label: str, pin: str = "") -> float:
+    """Tokens/s with every slot live: SERVE_SLOTS 128-token requests
+    admitted in one tick, the next tick profiled for the launch pin when
+    ``pin`` names the mode, then the rest timed on the host clock (each
+    tick ends in a host sync)."""
+    for _ in range(SERVE_SLOTS):
+        eng.submit(rng.randint(0, cfg.vocab_size, 128).astype(np.int32),
+                   max_new_tokens=1 + 6 * SERVE_CHUNK)
+    eng.step()
+    if pin:
+        pinned_tick(eng, pin)
+    before = dict(eng.stats)
+    t = time.perf_counter()
+    while eng.has_work:
+        eng.step()
+    wall = time.perf_counter() - t
+    toks = eng.stats["tokens_generated"] - before["tokens_generated"]
+    steps = eng.stats["decode_steps"] - before["decode_steps"]
+    print(f"   decode at {SERVE_SLOTS} live slots, {label}: {toks} tokens "
+          f"in {steps} steps, {wall:.6f} s, {toks / wall:.3f} tokens/s "
+          f"({wall / steps * 1e3:.3f} ms a step)")
+    return toks / wall
+
+
 def serve_phase(case: ServeCase, number: str, dev, card: str,
                 counters: dict) -> int:
     """Serve ``case.model`` at full width; returns its kernel's launches on
@@ -1904,7 +2016,8 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     K = case.kernel
     t0 = phase(f"{number}. serving {case.model} at full width: ServeEngine("
                f"batch_slots={SERVE_SLOTS}, max_len={case.max_len}, "
-               f"chunk_size={SERVE_CHUNK}), prompts "
+               f"chunk_size={SERVE_CHUNK}) chunked and host with the decode "
+               f"step captured, chunked eager; prompts "
                f"{[n for n, _ in case.reqs]}")
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(case.model)
@@ -1920,27 +2033,15 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
             for n, m in case.reqs]
     lengths = [len(p) for p, _ in reqs]
-
-    def serve(mode, batch):
-        eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                          max_len=case.max_len, chunk_size=SERVE_CHUNK,
-                          decode_mode=mode)
-        rids = [eng.submit(p, max_new_tokens=m) for p, m in batch]
-        results, finished = {}, []
-        t = time.perf_counter()
-        while eng.has_work:
-            finished += eng.step(results)
-        wall = time.perf_counter() - t
-        by_rid = {r.rid: r for r in finished}
-        return ([results[r] for r in rids], [by_rid[r] for r in rids],
-                dict(eng.stats), wall)
+    engines = serve_engines(cfg, params, case.max_len)
+    chunked = engines["chunked captured"]
 
     for fn in counters.values():
         fn.launches = 0
-    tokens, done_reqs, stats, wall = serve("chunked", reqs)
+    tokens, done_reqs, stats, wall = served(chunked, reqs)
     counts = {k: fn.launches for k, fn in counters.items()}
-    print(f"   chunked: stats {stats}, {wall:.3f} s; launches on the serving "
-          f"path: {counts}")
+    print(f"   chunked captured: stats {stats}, {wall:.3f} s; launches on "
+          f"the serving path: {counts}")
     longer = sum(n > 1 for n in lengths)
     want = longer * per_prefill
     if counts[K] != want or counts[K] == 0:
@@ -1958,14 +2059,20 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     for (p, m), out in zip(reqs, tokens):
         if len(out) != m or not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError(f"prompt of {len(p)}: bad output {out}")
-    host_tokens, _, host_stats, host_wall = serve("host", reqs)
-    print(f"   host: stats {host_stats}, {host_wall:.3f} s")
-    if host_tokens != tokens:
-        raise AssertionError("chunked and host decode gave other tokens")
-    print("   chunked and host decode give the same tokens")
+    for label in ("host captured", "chunked eager"):
+        other, _, other_stats, other_wall = served(engines[label], reqs)
+        print(f"   {label}: stats {other_stats}, {other_wall:.3f} s")
+        if other != tokens:
+            raise AssertionError(f"{label} decode gave other tokens than "
+                                 f"chunked captured")
+        if label == "chunked eager" and other_stats != stats:
+            raise AssertionError(f"chunked eager stats {other_stats}, "
+                                 f"captured {stats}")
+    print("   chunked captured, host captured and chunked eager give the "
+          "same tokens (and the chunked engines the same stats)")
     for n in case.ttft:  # on a warm engine: everything built and loaded
         k = lengths.index(n)
-        alone, alone_reqs, _, _ = serve("chunked", [reqs[k]])
+        alone, alone_reqs, _, _ = served(chunked, [reqs[k]])
         if n == 1000 and alone[0] != tokens[k]:
             raise AssertionError("the 1000-token request served alone gave "
                                  "other tokens than in the batch")
@@ -1975,37 +2082,40 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
               f"alone {(r.t_first - r.t_submit) * 1e3:.3f} ms, in the batch "
               f"{(b.t_first - b.t_submit) * 1e3:.3f} ms from submission")
 
-    # decode rate with every slot live: 4 requests admitted in one tick,
-    # then whole chunks timed on the host clock (each ends in a host sync)
-    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                      max_len=case.max_len, chunk_size=SERVE_CHUNK)
-    for _ in range(SERVE_SLOTS):
-        eng.submit(rng.randint(0, cfg.vocab_size, 128).astype(np.int32),
-                   max_new_tokens=1 + 6 * SERVE_CHUNK)
-    eng.step()
-    before = dict(eng.stats)
-    t = time.perf_counter()
-    while eng.has_work:
-        eng.step()
-    wall = time.perf_counter() - t
-    toks = eng.stats["tokens_generated"] - before["tokens_generated"]
-    steps = eng.stats["decode_steps"] - before["decode_steps"]
-    print(f"   decode at {SERVE_SLOTS} live slots: {toks} tokens in "
-          f"{steps} steps, {wall:.6f} s, {toks / wall:.3f} tokens/s "
-          f"({wall / steps * 1e3:.3f} ms a step)")
+    # decode rate with every slot live, captured beside eager in turns;
+    # the captured engines' launches pinned over one tick
+    rates = {}
+    for label, pin in (("chunked eager", ""),
+                       ("chunked captured", "chunked"),
+                       ("host captured", "host"),
+                       ("chunked captured", ""),
+                       ("chunked eager", "")):
+        rates.setdefault(label, []).append(
+            decode_rate(engines[label], cfg, rng, label, pin))
+    cap, eag = (max(rates[k]) for k in ("chunked captured", "chunked eager"))
+    print(f"   decode rate captured / eager (best of 2 each): "
+          f"{cap:.3f} / {eag:.3f} tokens/s = {cap / eag:.3f}x ({card})")
 
-    # one decode step at 4 slots and the 1000-token prefill under the
-    # profiler: launches, kernel time (the kernel's share), wall, idle share
+    # one decode step at 4 slots eager, the same step replayed, and the
+    # 1000-token prefill under the profiler: launches, kernel time (the
+    # kernel's share), wall, idle share
     k = lengths.index(1000)
     prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
-    for what, tok, caches in (
-            (f"one decode step at {SERVE_SLOTS} slots", eng.cur, eng.caches),
-            ("the 1000-token prefill", prompt,
-             init_caches(cfg, 1, case.max_len, device=dev))):
+    eager = engines["chunked eager"]
+    chunked._dev.zero_()  # a chunk's first step (index 0), every slot dead
+    for what, fn in (
+            (f"one decode step at {SERVE_SLOTS} slots, eager",
+             lambda: lm.forward(params, cfg, eager.cur, caches=eager.caches,
+                                last_token_only=True)),
+            (f"one decode step at {SERVE_SLOTS} slots, replayed",
+             chunked.program),
+            ("the 1000-token prefill",
+             lambda: lm.forward(params, cfg, prompt, caches=init_caches(
+                 cfg, 1, case.max_len, device=dev), last_token_only=True))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            lm.forward(params, cfg, tok, caches=caches, last_token_only=True)
+            fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         kern = device_kernels(prof)
@@ -2016,6 +2126,10 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
               f"({len(kern) / cfg.num_layers:.1f} a layer), {busy:.3f} ms of "
               f"kernel time ({len(mine)} {K} recorded, {mine_ms:.3f} ms) in "
               f"{wall:.3f} ms of wall (idle share {1 - busy / wall:.3f})")
+        if "replayed" in what:
+            for line in top_kernels(kern):
+                print("     " + line)
+    del engines, chunked, eager
 
     # the prefill logits of the checked prompt, the kernel against its plain
     # version, in the served bf16 forward and in a float32 forward of the
@@ -2059,9 +2173,197 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     print(f"   peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB ({card})")
     del params
-    torch.cuda.empty_cache()
+    release()
     done(t0)
     return counts[K]
+
+
+def top_kernels(kern: list, n: int = 6) -> list:
+    """The ``n`` CUDA kernel names with the most time among the profiler
+    events ``kern``: launches, ms and share of the kernel time each."""
+    total = sum(e.time_range.elapsed_us() for e in kern) or 1.0
+    by_name = {}
+    for e in kern:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:n]
+    return [f"{len(d)} x {sum(d) / 1e3:.3f} ms ({sum(d) / total:.1%}): "
+            f"{name[:90]}" for name, d in top]
+
+
+def release() -> None:
+    """Free what a phase's models held on the card: an engine and its
+    captured step refer to each other, so only the cycle collector frees
+    them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_phase(dev, card: str) -> None:
+    """The serving family and the dense configurations, in at most
+    DENSE_BUDGET_S: (a) ``bench_serve_load`` on the wall clock at
+    ``--smoke`` (reduced qwen1.5-0.5b), its artifacts read back through
+    the schema check; (b) one serve_load cell pair, chunked and host, with
+    ``qwen1.5-0.5b`` at full width through ``run_engine_load``; (c)
+    ``yi-6b`` and ``minitron-8b`` at full width serving DENSE_REQS, the
+    captured and eager chunked engines giving the same tokens, the
+    1000-token prompt's time to first token alone and the decode rate at
+    4 live slots captured beside eager; (d) ``qwen2-72b`` cut to
+    QWEN72_LAYERS of its 80 layers (the whole model does not fit the
+    card), one 1000-token prefill and a captured chunk, against eager."""
+    t0 = phase(f"12. dense serving and bench_serve_load (budget "
+               f"{DENSE_BUDGET_S} s; cuts: the family at --smoke on the "
+               f"reduced model, qwen2-72b at {QWEN72_LAYERS} of its 80 "
+               f"layers)")
+    outdir = ROOT / "build" / "bench" / "serve_load"
+    shutil.rmtree(outdir, ignore_errors=True)
+    t1 = time.perf_counter()
+    quietly(bench_run.main, ["--only", "bench_serve_load", "--smoke",
+                             "--artifacts", str(outdir)])
+    names = sorted(os.listdir(outdir))
+    if len(names) != 6:
+        raise AssertionError(f"bench_serve_load wrote {names}")
+    print(f"   (a) bench_serve_load --smoke on the wall clock "
+          f"({time.perf_counter() - t1:.3f} s), {len(names)} artifacts read "
+          f"back:")
+    for name in names:
+        doc = read_bench_json(str(outdir / name))
+        m = doc["metrics"]
+        if doc["timer"] != "wallclock" or m["completed"] != \
+                doc["scenario"]["num_requests"]:
+            raise AssertionError(f"{name}: {doc['timer']}, {m['completed']} "
+                                 f"completed")
+        print(f"     {doc['scenario']['name']}: {serve_line(m)}")
+
+    t1 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    print(f"   (b) qwen1.5-0.5b at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.dtype}), the family's rate-2000 "
+          f"cells in full:")
+    for mode in ("chunked", "host"):
+        spec = next(s for s in serve_load_family.specs()
+                    if s.name == f"serve_load.{mode}.rate2000")
+        res = run_engine_load(spec, cfg, params)
+        m = res.metrics
+        if m["completed"] != spec.num_requests:
+            raise AssertionError(f"{spec.name}: {m['completed']} completed")
+        print(f"     {spec.name} ({spec.num_requests} requests): "
+              f"{serve_line(m)}")
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+    del params
+    release()
+
+    for name in ("yi-6b", "minitron-8b"):
+        t1 = time.perf_counter()
+        dense_model(get_config(name), dev, DENSE_REQS, rates=True)
+        print(f"     ({time.perf_counter() - t1:.3f} s)")
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(get_config("qwen2-72b"),
+                              num_layers=QWEN72_LAYERS)
+    print(f"   (d) qwen2-72b cut to {cut.num_layers} of its 80 layers, "
+          f"{QWEN72_LAYERS / 80:.0%} of its depth")
+    dense_model(cut, dev, ((1000, 1 + SERVE_CHUNK),), rates=False)
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {DENSE_BUDGET_S} s budget "
+          f"({card})")
+    if took > DENSE_BUDGET_S:
+        raise AssertionError(f"phase 12 took {took:.3f} s, over its "
+                             f"{DENSE_BUDGET_S} s budget")
+
+
+def serve_line(m: dict) -> str:
+    return (f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.3f} / p95 "
+            f"{m['ttft_s']['p95'] * 1e3:.3f} / p99 "
+            f"{m['ttft_s']['p99'] * 1e3:.3f} ms, TPOT p50 "
+            f"{m['tpot_s']['p50'] * 1e3:.3f} / p95 "
+            f"{m['tpot_s']['p95'] * 1e3:.3f} ms, latency p95 "
+            f"{m['latency_s']['p95'] * 1e3:.3f} ms, "
+            f"{m['throughput_tok_s']:.3f} tokens/s, "
+            f"{m['goodput_rps']:.3f} requests/s, "
+            f"{m['host_syncs_per_token']:.4f} syncs a token, makespan "
+            f"{m['makespan_s']:.6f} s")
+
+
+def dense_model(cfg, dev, shape: tuple, rates: bool) -> None:
+    """Serve ``shape`` ((prompt tokens, new tokens) a request) with ``cfg``
+    at full width through the chunked engine captured and eager: the same
+    tokens, the time to first token of the 1000-token prompt, and with
+    ``rates`` the decode rate at 4 live slots captured beside eager."""
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"   {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads} kv, d_ff {cfg.d_ff} "
+          f"({'gated ' if cfg.mlp_gated else ''}{cfg.act}), vocab "
+          f"{cfg.vocab_size}, {n_params} parameters in {cfg.dtype} "
+          f"({torch.cuda.memory_allocated() / 1e9:.3f} GB), made from seed "
+          f"0 in {time.perf_counter() - t:.3f} s")
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in shape]
+    max_len = max(n + m for n, m in shape) + 8 * SERVE_CHUNK + 128
+    engines, served_tokens = {}, {}
+    for label, graphs in (("captured", True), ("eager", False)):
+        t = time.perf_counter()
+        engines[label] = ServeEngine(
+            cfg, params, batch_slots=SERVE_SLOTS, max_len=max_len,
+            chunk_size=SERVE_CHUNK, graphs=graphs)
+        tokens, done_reqs, stats, wall = served(engines[label], reqs)
+        p = engines[label].program
+        cap = ("" if p is None else
+               f"; capture {p.capture_s * 1e3:.3f} ms, instantiate "
+               f"{p.instantiate_s * 1e3:.3f} ms, graph pool "
+               f"{p.pool_bytes / 2**20:.3f} MiB")
+        r = done_reqs[[n for n, _ in shape].index(1000)]
+        built = time.perf_counter() - t - wall
+        print(f"     {label}: engine built in {built:.3f} s{cap}; served "
+              f"in {wall:.3f} s, stats {stats}; the 1000-token request's "
+              f"time to first token "
+              f"{(r.t_first - r.t_submit) * 1e3:.3f} ms from submission")
+        for (pr, m), out in zip(reqs, tokens):
+            if len(out) != m or not all(0 <= v < cfg.vocab_size
+                                        for v in out):
+                raise AssertionError(f"{cfg.name}: prompt of {len(pr)}: bad "
+                                     f"output {out}")
+        served_tokens[label] = tokens
+    if served_tokens["captured"] != served_tokens["eager"]:
+        raise AssertionError(f"{cfg.name}: captured and eager decode gave "
+                             f"other tokens")
+    print("     captured and eager decode give the same tokens")
+    k = [n for n, _ in shape].index(1000)
+    _, alone, _, _ = served(engines["captured"], [reqs[k]])
+    print(f"     the 1000-token request alone on the warm engine: time to "
+          f"first token {(alone[0].t_first - alone[0].t_submit) * 1e3:.3f} "
+          f"ms")
+    if rates:
+        got = {label: decode_rate(engines[label], cfg, rng, label)
+               for label in ("eager", "captured")}
+        print(f"     decode rate captured / eager: "
+              f"{got['captured'] / got['eager']:.3f}x")
+    eng = engines["captured"]
+    eng._dev.zero_()  # a chunk's first step (index 0), every slot dead
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.program()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kern = device_kernels(prof)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    print(f"     one decode step at {SERVE_SLOTS} slots replayed, profiled: "
+          f"{len(kern)} CUDA kernels ({len(kern) / cfg.num_layers:.1f} a "
+          f"layer), {busy:.3f} ms of kernel time in {wall:.3f} ms of wall; "
+          f"the kernels that take most of it:")
+    for line in top_kernels(kern):
+        print("       " + line)
+    del eng
+    print(f"     peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del engines, params
+    release()
 
 
 if __name__ == "__main__":

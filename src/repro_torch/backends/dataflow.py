@@ -26,8 +26,9 @@ counterpart here: the only option is ``device``.
 """
 from __future__ import annotations
 
+import gc
 import time
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -42,31 +43,48 @@ class CapturedProgram:
     overwrites.
 
     ``capture_s`` and ``instantiate_s`` are the host seconds of the capture
-    and of the graph's instantiation; ``nodes`` counts the K1 and K2
-    launches recorded by the capture, each a kernel node of the graph (the
-    wrappers' counters count at capture, never at replay); ``pool_bytes`` is
-    the device memory the graph's private pool holds.
+    and of the graph's instantiation; ``nodes`` counts, for each kernel
+    wrapper of ``counters`` (K1 and K2 unless given), the launches recorded
+    by the capture, each a kernel node of the graph (the wrappers' counters
+    count at capture, never at replay); ``pool_bytes`` is the device memory
+    the graph's private pool holds.  The eager warm-up runs ``program``
+    once for real, so a program that updates state in place leaves it
+    updated.
+
+    Dead objects are collected before the capture and the collector is
+    off during it: an object freed mid-capture can touch the legacy
+    default stream (a pinned host buffer that served an asynchronous copy
+    records an event there when it is freed), which invalidates the
+    capture.
     """
 
-    def __init__(self, program: Callable, device: torch.device):
+    def __init__(self, program: Callable, device: torch.device,
+                 counters: Sequence[Callable] = (taskbench_compute,
+                                                 taskbench_memory)):
         # the graph reads the staged inputs the program holds by address:
         # they must live as long as the graph
         self.program = program
-        counters = (taskbench_compute, taskbench_memory)
         with torch.cuda.device(device):
             stream = torch.cuda.Stream()
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 program()
             torch.cuda.synchronize()
+            gc.collect()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             before = [fn.launches for fn in counters]
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-            t0 = time.perf_counter()
-            with torch.cuda.graph(self.graph, stream=stream):
-                self.outputs = program()
-            t1 = time.perf_counter()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                with torch.cuda.graph(self.graph, stream=stream):
+                    self.outputs = program()
+                t1 = time.perf_counter()
+            finally:
+                if collecting:
+                    gc.enable()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t1
             self.capture_s = t1 - t0

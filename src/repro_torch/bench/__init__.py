@@ -14,6 +14,9 @@
                  mitigation factor)
 - ``tuner``    — the self-tuning planner behind ``torch-auto``: tuning
                  keys, the mode-space sweep and the committed table
+- ``serve``    — the ``serve_load`` scenario family: open-loop serving
+                 traces through the port's ``ServeEngine`` (wall clock) or
+                 the deterministic simulator (synthetic clock)
 - ``scaling``  — the ``metg_scaling`` weak-scaling family (paper §V-D/E),
                  every rank count in this process
 - ``suite``    — the declarative campaign: a TOML file of families run
@@ -46,6 +49,10 @@ from .tuner import (TuningKey, TuningTable, auto_resolve, build_tuning_table,
                     granularity_bucket, graphs_cutout, load_tuning_table,
                     payload_bucket, read_tuning_json, spec_cutout,
                     validate_tuning_table, write_tuning_json)
+from .serve import (ServeCostParams, ServeLoadResult, ServeLoadSpec,
+                    TracedRequest, run_engine_load, run_serve_load,
+                    serve_artifact, simulate_serve_load, synth_trace,
+                    write_serve_json)
 from .scaling import (RANKS, SCALING_BACKENDS, ScalingResult, ScalingSpec,
                       run_scaling, scaling_artifact, write_scaling_json)
 
@@ -102,6 +109,16 @@ __all__ = [
     "spec_cutout",
     "validate_tuning_table",
     "write_tuning_json",
+    "ServeCostParams",
+    "ServeLoadResult",
+    "ServeLoadSpec",
+    "TracedRequest",
+    "run_engine_load",
+    "run_serve_load",
+    "serve_artifact",
+    "simulate_serve_load",
+    "synth_trace",
+    "write_serve_json",
     "RANKS",
     "SCALING_BACKENDS",
     "ScalingResult",

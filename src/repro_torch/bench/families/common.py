@@ -1,12 +1,12 @@
 """Shared infrastructure of the port's bench families — thin glue over
 ``repro_torch.bench``.
 
-The counterpart of the reference's ``benchmarks/common.py`` (its serving
-hook waits for the port's ``bench.serve``).  Every family module exposes
-``run(ctx) -> List[Row]``; ``repro_torch.bench.run`` aggregates and prints
-``name,us_per_call,derived`` CSV (one row per measurement the paper's
-table or figure would plot), while the ``BenchContext`` writes a
-schema-checked ``BENCH_<scenario>.json`` per scenario.
+The counterpart of the reference's ``benchmarks/common.py``.  Every
+family module exposes ``run(ctx) -> List[Row]``; ``repro_torch.bench.run``
+aggregates and prints ``name,us_per_call,derived`` CSV (one row per
+measurement the paper's table or figure would plot), while the
+``BenchContext`` writes a schema-checked ``BENCH_<scenario>.json`` per
+scenario.
 
 Smoke mode is carried by the context and becomes a *parameter* of each
 scenario's ``SweepControls`` (no module-level global): the resolved spec —
@@ -107,6 +107,25 @@ class BenchContext:
                               else self.timer, peak_rate=peak_rate)
         if self.artifacts_dir:
             self.written.append(write_bench_json(result, self.artifacts_dir))
+        return result
+
+    def run_serve(self, spec, **kw):
+        """Measure one serve_load cell (smoke applied), record its artifact.
+
+        Dispatches on the context timer: None/wallclock drives the port's
+        ``ServeEngine`` on the context's device; the synthetic fake clock
+        runs the deterministic discrete-event cost model (the baseline
+        path).  ``kw`` forwards to ``run_serve_load`` (e.g.
+        ``cost=ServeCostParams(...)``).
+        """
+        from ..serve import run_serve_load, write_serve_json
+
+        spec = spec.resolved(self.smoke or spec.smoke)
+        self._claim(spec)
+        result = run_serve_load(spec, timer=self.timer, device=self.device,
+                                **kw)
+        if self.artifacts_dir:
+            self.written.append(write_serve_json(result, self.artifacts_dir))
         return result
 
     def run_scaling(self, spec):

@@ -18,6 +18,8 @@ schema-checked ``BENCH_<scenario>.json`` per scenario into
                          comm_overlap on/off (overlap-efficiency curve)
   bench_metg_imbalance   §V-G study: imbalance mitigation — work stealing
                          vs static schedule (mitigation-factor curve)
+  bench_serve_load       serving: open-loop TTFT / TPOT / latency
+                         percentiles, host vs chunked decode, 3 rates
 
 Run all: ``PYTHONPATH=src python -m repro_torch.bench.run``
 One:     ``... --only bench_metg_deps`` (``--only`` entries are validated
@@ -25,8 +27,9 @@ against the list above: a typo'd family exits nonzero instead of running
 zero benchmarks).
 Smoke:   ``... --smoke`` — tiny sweeps, one repeat, shallow graphs.
 Timer:   ``--timer synthetic`` runs on the deterministic fake clock (no
-backend is built, so no card is needed); ``--timer wallclock`` (the
-default) runs the backends, on the card unless ``--device cpu``.
+backend or engine is built, so no card is needed); ``--timer wallclock``
+(the default) runs the backends and the serving engine, on the card
+unless ``--device cpu``.
 
 Tuning: ``--tune`` regenerates the planner table consumed by
 ``get_backend("torch-auto")`` (``bench.tuner``) instead of running
@@ -58,6 +61,7 @@ MODULES = [
     "bench_metg_validation",
     "bench_metg_payload",
     "bench_metg_imbalance",
+    "bench_serve_load",
 ]
 
 

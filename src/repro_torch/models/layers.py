@@ -32,13 +32,25 @@ def dtype_of(cfg) -> torch.dtype:
                          f"{sorted(DTYPES)}") from None
 
 
+_DRAW = 1 << 28  # float32 elements ``_dense_init`` draws at once
+
+
 def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
                 device) -> torch.Tensor:
     """Truncated normal on [-2, 2] scaled by 1/sqrt(fan-in), drawn in
-    float32 and cast, as the reference's ``_dense_init``."""
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / np.sqrt(max(in_axis_size, 1)))).to(dtype)
+    float32 and cast, as the reference's ``_dense_init``.  A tensor of more
+    than ``_DRAW`` elements is drawn in slices of its leading dim, so that
+    the float32 draw of a stacked weight (32 layers of Qwen2-72B's MLP: 31
+    GB) never sits beside its cast."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, _DRAW * shape[0] // max(out.numel(), 1))
+    scale = 1.0 / np.sqrt(max(in_axis_size, 1))
+    for i in range(0, shape[0], rows):
+        w = torch.empty(out[i:i + rows].shape, dtype=torch.float32,
+                        device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out[i:i + rows] = w.mul_(scale)
+    return out
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor,

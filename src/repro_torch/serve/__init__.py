@@ -1,4 +1,5 @@
-"""Serving on the port: the continuous-batching ``ServeEngine``."""
-from .engine import Request, ServeEngine
+"""Serving on the port: the continuous-batching ``ServeEngine``, the
+batched (optionally left-padded) ``prefill`` and the decode ``serve_step``."""
+from .engine import Request, ServeEngine, prefill, serve_step
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "prefill", "serve_step"]

@@ -12,22 +12,47 @@ request lifecycle is the reference's:
 
 Decode runs in one of two modes:
 
-  ``"chunked"`` (default) — up to ``chunk_size`` decode steps are queued on
-    the card back to back with no host sync between them, carrying tokens,
-    caches and per-slot budgets on the device; then the output buffer, the
-    budgets and the count of steps at which some slot was live come back in
-    ONE copy.  The host knows every budget, so it queues
-    min(chunk_size, max budget) steps; an ``eos_id`` that ends all slots
-    sooner leaves the later steps dead, and they are not counted (once every
-    budget is 0 it stays 0).  So ``stats`` equal the reference's, whose
-    on-device loop stops when every budget is 0.
+  ``"chunked"`` (default) — up to ``chunk_size`` decode steps run back to
+    back with no host sync between them, carrying tokens, caches and
+    per-slot budgets on the device; then the output buffer, the budgets
+    and the count of steps at which some slot was live come back in ONE
+    copy.  The host knows every budget, so it runs min(chunk_size, max
+    budget) steps; an ``eos_id`` that ends all slots sooner leaves the
+    later steps dead, and they are not counted (once every budget is 0 it
+    stays 0).  So ``stats`` equal the reference's, whose on-device loop
+    stops when every budget is 0.
   ``"host"`` — one step and one device round trip per token, the baseline.
+
+The decode step of the engine's mode reads and writes fixed buffers: the
+next token a slot (``cur``), one int64 block holding the RoPE positions,
+budgets, eos ids, the chunk's (B, chunk_size) output, the step index and
+the live-step count, and the slot pool.  On a CUDA device the engine
+captures that one step as a CUDA graph at construction (``program``, a
+``backends.dataflow.CapturedProgram``), the counterpart of the reference's
+one compiled program a mode.  A chunk is then one host-to-device copy of
+the block (positions, budgets and eos ids, the output reset to -1, the
+step index and count to 0: a copy, no kernel), ``steps`` replays of the
+graph with no sync between them, and one copy back; host mode is one copy
+of the positions, one replay and one copy back a token.  The capture runs
+on the empty pool: its eager warm-up writes K/V rows, states and cursors,
+so every slot is reset and the buffers zeroed after it, and a captured
+engine starts as an eager one does.  A capture that fails raises; nothing
+falls back to eager.  One graph a step count (1 to ``chunk_size``) would
+save only ``steps - 1`` graph launches (microseconds each) a chunk of
+milliseconds, at up to ``chunk_size`` captures an engine of ``steps``
+times the step's nodes each; so the engine captures one step.
+
+On the CPU the same step runs eagerly (``graphs=False``, the default
+there; asking for graphs raises).  On the card ``graphs=False`` runs it
+eagerly too, the baseline the captured engine is held to.  Prefill stays
+eager: the reference compiles one program a prompt length, and a graph a
+length is not worth its capture under random lengths.
 
 Both modes run the same ``model.forward`` step.  The attention layers'
 per-slot cursors stay on the device and advance in place each step; the
-host keeps a mirror of them only for the RoPE positions it hands
-``forward`` once a chunk.  ``engine.stats`` counts prefills / decode steps
-/ chunk launches / host syncs / tokens generated.
+host keeps a mirror of the positions it uploads once a chunk.
+``engine.stats`` counts prefills / decode steps / chunk launches / host
+syncs / tokens generated.
 """
 from __future__ import annotations
 
@@ -38,8 +63,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..backends.dataflow import CapturedProgram
+from ..kernels.flash_attention import flash_attention
+from ..kernels.ssd import ssd_chunked
 from ..models import model as M
-from ..models.cache import init_caches, reset_slot, stack_caches, write_prompt
+from ..models.cache import (LayerCache, init_caches, reset_slot,
+                            stack_caches, write_prompt)
 
 
 @dataclasses.dataclass
@@ -62,10 +91,51 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 def serve_step(params, tokens, caches, pos, *, cfg):
     """One decode step for the whole batch: (B, 1) tokens -> (B, 1) next;
-    ``caches`` are updated in place."""
+    ``caches`` are updated in place.  ``pos`` is an int, a 0-d tensor or
+    (B,) per-slot positions."""
     logits, caches = M.forward(params, cfg, tokens, caches=caches, pos=pos,
                                last_token_only=True)
     return _greedy(logits)[:, None], caches
+
+
+def _with_start(caches, start: torch.Tensor):
+    """Attach per-slot start offsets (B,) to the attention layers of
+    ``caches``, in place (K/V stay where they are); a stacked cache gets
+    them broadcast over its layer dim."""
+    def one(c: LayerCache, layer_dim: bool) -> None:
+        if c.kind not in ("full", "ring"):
+            return
+        if layer_dim:  # pre-stacked: every tensor leads with the layer dim
+            c.start = start.expand((c.k.shape[0],) + start.shape).clone()
+        else:
+            c.start = start
+
+    if isinstance(caches, LayerCache):
+        one(caches, layer_dim=True)
+    else:
+        for c in caches:
+            one(c, layer_dim=False)
+    return caches
+
+
+def prefill(params, tokens, caches, pos=0, *, cfg, pad=None):
+    """Batched prefill; returns ((B, 1) first greedy token, caches), the
+    caches updated in place.
+
+    ``pad`` (optional (B,) ints) gives the left-pad width of each row.
+    When set, the attention layers store it as a per-slot ``start``: pad
+    rows land at negative key positions and are masked out, and the RoPE
+    positions are rebased so each row's first real token sits at position
+    0, so a padded-batch prefill matches per-row unpadded prefills for
+    attention layers.  Recurrent and SSM state still absorbs the pad rows,
+    as in the reference; the engine prefills unpadded at B=1.
+    """
+    if pad is not None:
+        pad = torch.as_tensor(np.asarray(pad), dtype=torch.int64,
+                              device=tokens.device)
+        caches = _with_start(caches, pad)
+        pos = pos - pad  # (B,): rebased RoPE positions a row
+    return serve_step(params, tokens, caches, pos, cfg=cfg)
 
 
 def _new_caches(cfg, batch, max_len, device, per_slot_pos=False):
@@ -81,39 +151,8 @@ def _prefill_one(params, tokens, *, cfg, max_len):
     cursors); returns (the first token as a 0-d device tensor, the
     caches)."""
     caches = _new_caches(cfg, 1, max_len, tokens.device)
-    logits, caches = M.forward(params, cfg, tokens, caches=caches, pos=0,
-                               last_token_only=True)
-    return _greedy(logits)[0], caches
-
-
-def _decode_chunk(params, tokens, caches, pos, remaining, eos, *, cfg, chunk,
-                  steps):
-    """Queue ``steps`` <= ``chunk`` decode steps with no host sync.
-
-    Carries (B, 1) tokens, caches (in place), (B,) pos and (B,) remaining
-    budgets.  ``remaining`` counts tokens still owed (0 = dead slot);
-    emitting ``eos[b]`` (when >= 0) zeroes it.  Dead slots keep stepping
-    harmlessly: batch rows are independent, and their writes land in rows
-    that ``write_prompt`` overwrites at the next admission.
-
-    Returns (out, tokens, caches, pos, remaining, live_steps): ``out`` is
-    (B, chunk) with -1 where slot b was dead at step t, and ``live_steps``
-    the number of steps at which some slot was live (a 0-d tensor).
-    """
-    B = tokens.shape[0]
-    out = torch.full((B, chunk), -1, dtype=torch.int64, device=tokens.device)
-    live_steps = torch.zeros((), dtype=torch.int64, device=tokens.device)
-    for t in range(steps):
-        logits, caches = M.forward(params, cfg, tokens, caches=caches,
-                                   pos=pos, last_token_only=True)
-        nxt = _greedy(logits)
-        live = remaining > 0
-        live_steps += live.any()
-        out[:, t] = torch.where(live, nxt, -1)
-        rem = torch.where(live, remaining - 1, 0)
-        remaining = torch.where(live & (eos >= 0) & (nxt == eos), 0, rem)
-        tokens, pos = nxt[:, None], pos + 1
-    return out, tokens, caches, pos, remaining, live_steps
+    nxt, caches = prefill(params, tokens, caches, cfg=cfg)
+    return nxt[0, 0], caches
 
 
 class ServeEngine:
@@ -125,12 +164,18 @@ class ServeEngine:
         len(prompt) + max_new_tokens <= max_len.
       chunk_size: decode steps per host sync in chunked mode.
       decode_mode: "chunked" (1 sync a chunk) or "host" (1 sync a token).
+      graphs: capture the decode step as a CUDA graph and replay it
+        (default: on a CUDA device, where ``False`` runs it eagerly; the
+        CPU has no graphs, and asking for them there raises).
 
-    The engine runs on the device of ``params``.
+    The engine runs on the device of ``params``.  ``program`` is the
+    captured step (``capture_s``, ``instantiate_s``, ``pool_bytes``), None
+    when the step runs eagerly.
     """
 
     def __init__(self, cfg, params, batch_slots: int = 4, max_len: int = 512,
-                 chunk_size: int = 8, decode_mode: str = "chunked"):
+                 chunk_size: int = 8, decode_mode: str = "chunked",
+                 graphs: Optional[bool] = None):
         assert cfg.supports_decode, f"{cfg.name} is encoder-only"
         if decode_mode not in ("chunked", "host"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
@@ -141,6 +186,11 @@ class ServeEngine:
         self.chunk_size = int(chunk_size)
         self.decode_mode = decode_mode
         self.device = params["embed"]["table"].device
+        on_card = self.device.type == "cuda"
+        graphs = on_card if graphs is None else bool(graphs)
+        if graphs and not on_card:
+            raise ValueError(f"CUDA graphs need a CUDA device; the "
+                             f"parameters are on {self.device}")
 
         # ONE persistent slotted cache for the life of the engine; the
         # attention cursors live in it, on the device, and the layers
@@ -148,8 +198,32 @@ class ServeEngine:
         self.caches = _new_caches(cfg, batch_slots, max_len, self.device,
                                   per_slot_pos=True)
 
-        B = batch_slots
+        B, C = batch_slots, self.chunk_size
         self.cur = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
+        # the step's fixed buffers in one block, so that a chunk sets them
+        # with one copy and reads them back with one:
+        # [pos (B) | rem (B) | eos (B) | out (B*C) | t (1) | live steps (1)]
+        n = 3 * B + B * C + 2
+        self._host = torch.zeros(n, dtype=torch.int64, pin_memory=on_card)
+        self._dev = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._d_pos, self._d_rem, self._d_eos = (
+            self._dev[i * B:(i + 1) * B] for i in range(3))
+        self._d_out = self._dev[3 * B:3 * B + B * C].view(B, C)
+        self._d_t, self._d_live = self._dev[n - 2:n - 1], self._dev[n - 1:]
+
+        step = self._chunk_step if decode_mode == "chunked" else \
+            self._host_step
+        self.program = None
+        if graphs:
+            self.program = CapturedProgram(step, self.device,
+                                           counters=(flash_attention,
+                                                     ssd_chunked))
+            for slot in range(B):  # undo the warm-up's writes
+                reset_slot(self.caches, slot)
+            self.cur.zero_()
+            self._dev.zero_()
+        self._decode = self.program or step
+
         self._pos = np.zeros((B,), np.int64)      # host mirror of the cursors
         self._rem = np.zeros((B,), np.int64)      # tokens still owed per slot
         self._eos = np.full((B,), -1, np.int64)   # eos id per slot (-1: none)
@@ -158,6 +232,33 @@ class ServeEngine:
         self._next_rid = 0
         self.stats = {"prefills": 0, "decode_steps": 0, "chunk_launches": 0,
                       "host_syncs": 0, "tokens_generated": 0}
+
+    # ------------------------------------------------------- decode steps
+    def _chunk_step(self) -> None:
+        """One step of a chunk on the fixed buffers.  ``rem`` counts tokens
+        still owed (0 = dead slot); emitting ``eos[b]`` (when >= 0) zeroes
+        it.  Dead slots keep stepping harmlessly: batch rows are
+        independent, and their writes land in rows that ``write_prompt``
+        overwrites at the next admission."""
+        logits, _ = M.forward(self.params, self.cfg, self.cur,
+                              caches=self.caches, pos=self._d_pos,
+                              last_token_only=True)
+        nxt = _greedy(logits)
+        rem, eos = self._d_rem, self._d_eos
+        live = rem > 0
+        self._d_live.add_(live.any())
+        self._d_out.index_copy_(1, self._d_t,
+                                torch.where(live, nxt, -1)[:, None])
+        left = torch.where(live, rem - 1, 0)
+        rem.copy_(torch.where(live & (eos >= 0) & (nxt == eos), 0, left))
+        self.cur.copy_(nxt[:, None])
+        self._d_pos.add_(1)
+        self._d_t.add_(1)
+
+    def _host_step(self) -> None:
+        nxt, _ = serve_step(self.params, self.cur, self.caches, self._d_pos,
+                            cfg=self.cfg)
+        self.cur.copy_(nxt)
 
     # ------------------------------------------------------------- frontend
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -242,15 +343,17 @@ class ServeEngine:
 
     def _step_chunked(self, results) -> List[Request]:
         B, C = self.slots, self.chunk_size
-        host = torch.from_numpy(np.stack([self._pos, self._rem, self._eos]))
-        pos, rem, eos = host.to(self.device)
-        out, self.cur, self.caches, _pos, rem, t = _decode_chunk(
-            self.params, self.cur, self.caches, pos, rem, eos, cfg=self.cfg,
-            chunk=C, steps=min(C, int(self._rem.max())))
+        h = self._host.numpy()
+        h[:B], h[B:2 * B], h[2 * B:3 * B] = self._pos, self._rem, self._eos
+        h[3 * B:3 * B + B * C] = -1
+        h[-2:] = 0
+        self._dev.copy_(self._host, non_blocking=True)
+        for _ in range(min(C, int(self._rem.max()))):
+            self._decode()
         # ONE host sync for the whole chunk: tokens, budgets and step count
-        back = torch.cat([out.reshape(-1), rem, t.reshape(1)]).cpu().numpy()
-        out, rem, steps = back[:B * C].reshape(B, C), back[B * C:-1], \
-            int(back[-1])
+        back = self._dev.to("cpu", copy=True).numpy()
+        out, rem = back[3 * B:3 * B + B * C].reshape(B, C), back[B:2 * B]
+        steps = int(back[-1])
         self.stats["chunk_launches"] += 1
         self.stats["host_syncs"] += 1
         self.stats["decode_steps"] += steps
@@ -264,9 +367,10 @@ class ServeEngine:
         return self._harvest(slot_tokens, results)
 
     def _step_host(self, results) -> List[Request]:
-        self.cur, self.caches = serve_step(
-            self.params, self.cur, self.caches,
-            torch.from_numpy(self._pos).to(self.device), cfg=self.cfg)
+        B = self.slots
+        self._host.numpy()[:B] = self._pos
+        self._d_pos.copy_(self._host[:B], non_blocking=True)
+        self._decode()
         cur = self.cur.cpu().numpy()     # one host sync PER TOKEN
         self.stats["decode_steps"] += 1
         self.stats["host_syncs"] += 1

@@ -740,3 +740,164 @@ def test_reduced_gemma_serves_on_card_through_k5(cuda):
         assert flash_attention.launches - n == longer * local
     assert outs["chunked"] == outs["host"]
     assert [len(o) for o in outs["chunked"]] == [m for _, m in reqs]
+
+
+# ------------------------------------------- the captured decode step
+SERVE_REQS = [([1, 2, 3], 7), ([4, 5], 3), ([6], 5), (list(range(1, 38)), 5),
+              ([9, 1, 9], 9)]
+SERVE_MODELS = [("mamba2-2.7b", 64), ("recurrentgemma-2b", 96),
+                ("qwen1.5-0.5b", 64)]
+
+
+def reduced_model(name, cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_model
+
+    cfg = reduced(get_config(name))
+    return cfg, init_model(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+
+
+def drain(cfg, params, mode, graphs, max_len, reqs=SERVE_REQS, eos=None,
+          eng=None):
+    from repro_torch.serve import ServeEngine
+
+    eng = eng or ServeEngine(cfg, params, batch_slots=2, max_len=max_len,
+                             chunk_size=4, decode_mode=mode, graphs=graphs)
+    before = dict(eng.stats)
+    rids = [eng.submit(np.array(p), max_new_tokens=m, eos_id=eos)
+            for p, m in reqs]
+    out = eng.run()
+    return ([out[r] for r in rids],
+            {k: v - before[k] for k, v in eng.stats.items()}, eng)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["chunked", "host"])
+@pytest.mark.parametrize("name,max_len", SERVE_MODELS)
+def test_captured_engine_gives_the_eager_engines_tokens_and_stats(
+        cuda, name, max_len, mode):
+    """The captured step replayed gives the eager step's tokens and all
+    five ``stats``, over a stream that reuses both slots, with an eos
+    stop, and for a request served after the stream on the same engine."""
+    cfg, params = reduced_model(name, cuda)
+    eager, eager_stats, _ = drain(cfg, params, mode, False, max_len)
+    got, stats, eng = drain(cfg, params, mode, True, max_len)
+    assert eng.program is not None
+    assert eng.program.nodes == {"flash_attention": 0, "ssd_chunked": 0}
+    assert got == eager and stats == eager_stats
+    assert [len(t) for t in got] == [m for _, m in SERVE_REQS]
+    seq = eager[0]
+    k, eos = next((i, t) for i, t in enumerate(seq)
+                  if 0 < i < len(seq) - 1 and t not in seq[:i])
+    want, want_stats, _ = drain(cfg, params, mode, False, max_len, eos=eos)
+    got, stats, _ = drain(cfg, params, mode, None, max_len, eos=eos, eng=eng)
+    assert got[0] == seq[:k + 1] == want[0]
+    assert got == want and stats == want_stats
+    fresh, _, _ = drain(cfg, params, mode, False, max_len,
+                        reqs=[SERVE_REQS[-1]])
+    again, _, _ = drain(cfg, params, mode, None, max_len,
+                        reqs=[SERVE_REQS[-1]], eng=eng)
+    assert again == fresh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["chunked", "host"])
+@pytest.mark.parametrize("name,max_len", SERVE_MODELS)
+def test_capture_leaves_the_pool_zeroed(cuda, name, max_len, mode):
+    from repro_torch.models.cache import LayerCache
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = reduced_model(name, cuda)
+    eng = ServeEngine(cfg, params, batch_slots=2, max_len=max_len,
+                      decode_mode=mode)
+    layers = [eng.caches] if isinstance(eng.caches, LayerCache) \
+        else eng.caches
+    for c in layers:
+        for t in c.tensors() + [c.pos] * (c.pos is not None):
+            assert not t.any()
+    assert not eng.cur.any() and not eng._dev.any()
+    p = eng.program
+    assert p.capture_s > 0 and p.instantiate_s > 0 and p.pool_bytes >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["chunked", "host"])
+def test_captured_decode_is_one_graph_launch_a_step(cuda, mode):
+    """A tick with no admission or completion: ``steps`` (chunked) or one
+    (host) ``cudaGraphLaunch`` from the host and no kernel launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = reduced_model("mamba2-2.7b", cuda)
+    eng = ServeEngine(cfg, params, batch_slots=2, max_len=64, chunk_size=4,
+                      decode_mode=mode)
+    for p in ([1, 2, 3], [4, 5, 6, 7]):
+        eng.submit(np.array(p), max_new_tokens=20)
+    eng.step()
+    before = eng.stats["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assert eng.step() == []
+    steps = eng.stats["decode_steps"] - before
+    assert steps == (4 if mode == "chunked" else 1)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sum("cudaGraphLaunch" in n for n in names) == steps
+    assert not any("LaunchKernel" in n for n in names), sorted(set(names))
+
+
+@pytest.mark.gpu
+def test_capture_beside_dead_engines_with_an_eager_collector(cuda):
+    """A dead engine (a cycle with its captured step) holds a pinned buffer
+    that served asynchronous copies on the default stream; freed during a
+    later capture it would record an event there and invalidate it.  With
+    the collector run at every allocation, captures after dead engines
+    still succeed and serve the eager engine's tokens."""
+    import gc
+
+    cfg, params = reduced_model("recurrentgemma-2b", cuda)
+    want, _, _ = drain(cfg, params, "chunked", False, 96)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for mode in ("chunked", "host", "chunked"):
+            got, _, _ = drain(cfg, params, mode, True, 96)
+            assert got == want, mode
+    finally:
+        gc.set_threshold(*threshold)
+
+
+CAPTURE_FAILS = """
+import numpy as np, torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.models.model import init_model
+from repro_torch.serve import ServeEngine, engine
+cfg = reduced(get_config("qwen1.5-0.5b"))
+params = init_model(cfg, 0, "cuda")
+real = engine._greedy
+engine._greedy = lambda logits: real(logits) + int(logits.sum() * 0)
+try:
+    ServeEngine(cfg, params, batch_slots=2, max_len=32)
+except RuntimeError as e:  # torch.AcceleratorError among them
+    print("raised", type(e).__name__)
+else:
+    print("captured")
+"""
+
+
+@pytest.mark.gpu
+def test_a_capture_that_fails_raises(cuda, tmp_path):
+    """A step that syncs with the host cannot be captured: the engine's
+    construction raises, with no eager fallback (in a child process, since
+    a failed capture may leave the context unusable)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    proc = subprocess.run([sys.executable, "-c", CAPTURE_FAILS], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.stdout.strip().splitlines()[-1].startswith("raised "), \
+        proc.stdout + proc.stderr

@@ -84,7 +84,8 @@ def spy(monkeypatch, module, name):
 
 # ---------------------------------------------------------------- configs
 def test_config_copy_equals_reference():
-    names = [MODEL, "recurrentgemma-2b", "qwen1.5-0.5b"]
+    names = [MODEL, "recurrentgemma-2b", "yi-6b", "qwen1.5-0.5b",
+             "qwen2-72b", "minitron-8b"]
     for name in names:
         ref, port = rcfg.get_config(name), tcfg.get_config(name)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -94,9 +95,9 @@ def test_config_copy_equals_reference():
         assert port.params_dense == ref.params_dense
     assert tcfg.config_names() == sorted(names)
     assert tcfg.ALL_ARCHS == names
-    assert set(names) <= set(rcfg.ALL_ARCHS)
+    assert names == [n for n in rcfg.ALL_ARCHS if n in names]
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("yi-6b")
+        tcfg.get_config("mixtral-8x7b")
 
 
 # -------------------------------------------------------------- SSD (K6)

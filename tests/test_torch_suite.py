@@ -1,6 +1,6 @@
 """The port's runner, bench families and suite layer equal the reference's.
 
-Each of the nine families, run on the synthetic clock with ``--smoke``,
+Each of the ten families, run on the synthetic clock with ``--smoke``,
 writes the artifacts the reference's family writes, with the backend
 names mapped (the reference's scaling family runs its ``run_rank_cell`` in
 this process instead of a JAX child process); the suite parses and
@@ -31,7 +31,8 @@ PAPER = os.path.join(os.path.dirname(psu.__file__), "suites", "paper.toml")
 def mapped(doc):
     doc = copy.deepcopy(doc)
     doc["scenario"]["name"] = port_label(doc["scenario"]["name"])
-    doc["scenario"]["backend"] = port_spec(doc["scenario"]["backend"])
+    if "backend" in doc["scenario"]:  # serve_load names none
+        doc["scenario"]["backend"] = port_spec(doc["scenario"]["backend"])
     return doc
 
 
@@ -39,7 +40,7 @@ def test_families_are_the_reference_families_less_the_lm_ones():
     from benchmarks.run import MODULES
 
     assert FAMILIES == [m for m in MODULES if m not in (
-        "bench_model_step", "bench_moe_dispatch", "bench_serve_load")]
+        "bench_model_step", "bench_moe_dispatch")]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
