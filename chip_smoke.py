@@ -143,15 +143,37 @@ raise on failure:
    and ``qwen2-72b`` cut to QWEN72_LAYERS (32) of its 80 layers (61 GB of
    its 145 GB in bf16), one 1000-token prefill and a captured chunk
    against eager.  Dense prefill runs the attention oracle (a tensor
-   cursor), as the reference does, so no kernel of K1-K6 runs here.
-The "kernel times" phase also times K6 at the five shapes Mamba-2 serving
+   cursor), as the reference does, so no kernel of K1-K6 runs here;
+13. MoE serving, the a2a path and the dispatch family, in MOE_BUDGET_S
+   (150 s): ``mixtral-8x7b`` cut to MIXTRAL_LAYERS (20) of its 32 layers
+   (58.6 GB of its 93 GB in bf16) serving DENSE_REQS and a 4500-token
+   prompt at ``max_len`` 6144, so every layer has a ring cache and every
+   prefill runs K5 with the model's window of 4096; ``arctic-480b`` cut to
+   ARCTIC_LAYERS (2) of its 35 (55 GB), one 1000-token prefill and a
+   captured chunk; each captured and eager chunked, the same tokens, time
+   to first token, decode at 4 live slots captured beside eager against
+   the step's bytes bound (the dense path reads every expert), the prefill
+   logits without a cache on K5 (Arctic's Hq 56 / Hkv 8, GQA group 7)
+   against its plain version; the counts zeroed before and read after,
+   K5 exactly once a layer a ring-cache prefill or cacheless forward and
+   no other kernel; K5 timed at those shapes (ATTN_MOE, also checked in
+   phase 3) beside its plain version and SDPA; the a2a path on one
+   full-width Mixtral layer in float32 at capacity factor 8 over a new
+   pool of 4 rank processes, as (data, model) = (2, 2) and (4, 1) in both
+   ep_modes, each rank building its shard from the seed, against the
+   dense path within the reference's 5e-4 max(scale, 1) and each rank's
+   all-to-all bytes equal to ``analytic_a2a_bytes``; and
+   ``bench_moe_dispatch`` through the runner.
+The "kernel times" phase runs the plain K3 and K4 (1.13-1.44 s a call) one
+call a window, a cut for the time phase 13 takes.  It also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
 ``cuda-graph`` stencil run beside K1 alone; an empty kernel with K1's grid
 (the launch floor K1's bound leaves out) alone and as a graph node; and the
 replayed run's device time and wall a timestep beside ``torch-scan``'s wall.
 The line before the last lists the kernels with their launches on the main
 path (and the path they were counted on; ``planner_launches``: through
-``torch-auto`` in phase 11, a rank's included), errors, times, bounds and
+``torch-auto`` in phase 11, a rank's included; ``moe_launches``: on
+phase 13's MoE serving), errors, times, bounds and
 (K5) the time of one library call for the same function; for K5 and K6,
 whose main paths are bf16, the bf16 kernel's (K6's summed over its three
 passes, its bound at the bf16 tensor-core peak).  The
@@ -284,6 +306,19 @@ SERVE_SLOTS, SERVE_CHUNK = 4, 8
 DENSE_BUDGET_S = 150
 QWEN72_LAYERS = 32
 DENSE_REQS = ((1000, 16), (300, 24), (37, 16), (5, 20))
+# phase 13: MoE serving, the a2a path and the dispatch family, in at most
+# MOE_BUDGET_S.  Its cuts: mixtral-8x7b (93 GB in bf16) at MIXTRAL_LAYERS of
+# its 32 layers (58.6 GB), arctic-480b (~960 GB) at ARCTIC_LAYERS of its 35
+# (55 GB); the a2a path on one full-width Mixtral layer in float32 (the
+# reference's tolerance is a float32 one) at capacity factor 8 (no drops,
+# as the reference's a2a tests), A2A_TOKENS (batch, seq) = 64 tokens
+MOE_BUDGET_S = 150
+MIXTRAL_LAYERS, ARCTIC_LAYERS = 20, 2
+MOE_REQS = DENSE_REQS + ((4500, 16),)  # 4500 tokens: past the window
+MIXTRAL_MAX_LEN = 6144  # > the window of 4096: ring caches, K5's window
+A2A_TOKENS = (4, 16)
+A2A_GRIDS = ((2, 2), (4, 1))  # (data, model) over RANKS rank processes
+A2A_SEED = 3
 # K5: tests/test_kernels.py's ATTN_CASES, ragged lengths, fully masked rows
 # (a causal q_offset < 0), shapes the tensor-core kernel's 128 x 64 tiles
 # can get wrong, then the full-width RecurrentGemma-2B prefill
@@ -301,6 +336,11 @@ ATTN_CASES = ((2, 128, 128, 4, 2, 64, True, None, 0),
               (1, 100, 357, 4, 4, 256, True, None, 257),
               (1, 130, 201, 10, 1, 256, False, None, 0))
 ATTN_FULL = tuple((1, S, S, 10, 1, 256, True, 2048, 0) for S in (1000, 3000))
+# K5 at the MoE prefills of phase 13: Mixtral's longest prompt against its
+# window of 4096 (Hq 32, Hkv 8) and Arctic's 1000-token prompt (Hq 56, Hkv
+# 8: GQA group 7)
+ATTN_MOE = ((1, 4500, 4500, 32, 8, 128, True, 4096, 0),
+            (1, 1000, 1000, 56, 8, 128, True, None, 0))
 # float32: |o - o_plain| <= ATTN_TOL (1 + |o_plain|), the reference's own
 # kernel-test tolerance; a bf16 output one bf16 ulp of o_plain more
 ATTN_TOL = 2e-5
@@ -898,7 +938,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         ssd_ops.ssd(*args, chunk=32), ssd_ops.ssd(*args, chunk=32,
                                                   impl="plain")))
     errs["K5"] = 0.0
-    for case in ATTN_CASES + ATTN_FULL:
+    for case in ATTN_CASES + ATTN_FULL + ATTN_MOE:
         *shape, causal, window, q_offset = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attn_inputs(*shape, dev, dtype)
@@ -1062,7 +1102,10 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     done(t0)
 
     # -- kernel times at the main path's shapes -------------------------
-    t0 = phase("kernel times at the main path's shapes")
+    # the plain K3 and K4 take 1.13-1.44 s a call on the stream: one call a
+    # window (five calls each with the warm call and the CUDA-event pass)
+    t0 = phase("kernel times at the main path's shapes (cut: one call a "
+               "window for the plain K3 and K4)")
     rows = []
     tiles = (0.5 + torch.zeros(WIDTH, 8, 128, device=dev))
     its = torch.full((WIDTH,), MAIN_ITERS, dtype=torch.int32, device=dev)
@@ -1087,7 +1130,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     table_bytes = sum(t.numel() * 4 for t in tabs[:4])
     rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10,
                              kernels_a_call=1),
-                 timed(lambda: taskbench_fused_plain(*tabs, **kw), 2),
+                 timed(lambda: taskbench_fused_plain(*tabs, **kw), 1),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        table_bytes + WIDTH * stencil.payload_elems * 4),
                  None))
@@ -1098,7 +1141,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         * stencil.payload_elems * 4
     rows.append(("K4", timed(lambda: taskbench_onesided(*otabs, **okw), 10,
                              kernels_a_call=1),
-                 timed(lambda: taskbench_onesided_plain(*otabs, **okw), 2),
+                 timed(lambda: taskbench_onesided_plain(*otabs, **okw), 1),
                  bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
                        sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
                        + WIDTH * stencil.payload_elems * 4), None))
@@ -1187,6 +1230,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
          ("stencil 4096 B", "stencil_4096B", [full_size("stencil_4096B")])),
         oracles, results, sms, card, counters)
     dense_phase(dev, card)
+    moe_launches = moe_phase(dev, card, counters, bound, peak_bf16, sms)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1210,6 +1254,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "launches_on": launches_on[k],
              "rank_launches": rank_launches.get(k, {}),
              "planner_launches": planner_launches.get(k, 0),
+             "moe_launches": moe_launches[k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device}
@@ -1819,20 +1864,22 @@ def graph_times(runner, scan_runner, k1_call, k1_alone: Timing,
           f"{np.median(walls['torch-scan']) / np.median(walls['cuda-graph']):.3f}")
 
 
-def attention_times(dev, bound, peak_bf16: float, sms: int):
-    """K5 at the full-width RecurrentGemma-2B prefill shapes (bf16, its
-    tensor-core kernel): its device time, its plain version's, one
-    scaled_dot_product_attention call computing the same function (the
-    yardstick; the port never calls it), the bound and the rates reached.
-    Returns the S = 3000 row (timing, plain, bound, library)."""
-    for case in ATTN_FULL:
+def attention_times(dev, bound, peak_bf16: float, sms: int,
+                    cases: tuple = ATTN_FULL):
+    """K5 at full-width prefill shapes (``cases``; by default
+    RecurrentGemma-2B's), bf16, its tensor-core kernel: its device time,
+    its plain version's, one scaled_dot_product_attention call computing
+    the same function (the yardstick; the port never calls it), the bound
+    and the rates reached.  Returns the last case's row (timing, plain,
+    bound, library)."""
+    for case in cases:
         *shape, causal, window, q_offset = case
         S = shape[1]
         q, k, v = attn_inputs(*shape, dev, torch.bfloat16)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = None
-        if S > window:  # the window cuts into the causal triangle
+        if window is not None and S > window:  # it cuts into the triangle
             pos = torch.arange(S, device=dev)
             mask = (pos[None, :] <= pos[:, None]) & (
                 pos[None, :] > pos[:, None] - window)
@@ -1858,8 +1905,9 @@ def attention_times(dev, bound, peak_bf16: float, sms: int):
         issued = B * Hq * tiles * 3 * 2 * 64 * 64 * D
         heavy, even, makespan = k5_grid(Sq, Skv, Hq, causal, window,
                                         q_offset, sms)
-        print(f"   K5 at S={S} (B=1, Hq=10, Hkv=1, D=256, window {window}, "
-              f"bf16): {t.describe()}; plain version {pt.describe()}; "
+        print(f"   K5 at S={S} (B={B}, Hq={Hq}, Hkv={shape[4]}, D={D}, "
+              f"window {window}, bf16): {t.describe()}; plain version "
+              f"{pt.describe()}; "
               f"scaled_dot_product_attention ({how}, enable_gqa; max abs "
               f"diff from plain {lib_err:.3e}) {lt.describe()}; "
               f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB: bound "
@@ -2272,6 +2320,150 @@ def dense_phase(dev, card: str) -> None:
                              f"{DENSE_BUDGET_S} s budget")
 
 
+def moe_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
+              sms: int) -> dict:
+    """MoE serving, the a2a path and the dispatch family, in at most
+    MOE_BUDGET_S: (a) ``mixtral-8x7b`` cut to MIXTRAL_LAYERS layers serving
+    MOE_REQS (a 4500-token prompt past its window of 4096 among them) at
+    ``max_len`` MIXTRAL_MAX_LEN, so every layer has a ring cache and every
+    prefill runs K5 with the window, the captured and eager chunked engines
+    giving the same tokens, time to first token, the decode rate at 4 live
+    slots captured beside eager against the step's bytes bound, and the
+    4500-token prefill logits with K5 against its plain version; (b)
+    ``arctic-480b`` cut to ARCTIC_LAYERS layers: one 1000-token prefill
+    and a captured chunk against eager, its decode rate, and the
+    1000-token forward without a cache on K5 (GQA group 7) against its
+    plain version; the launch counts zeroed just before (a) and read just
+    after (b), K5 exactly as many times as those prefills ask and no other
+    kernel; K5 timed at ATTN_MOE beside its plain version and SDPA; (c)
+    the a2a path on one full-width Mixtral layer (float32, capacity factor
+    8) over a pool of RANKS rank processes as (data, model) = (2, 2) and
+    (4, 1) in both ep_modes, against the dense path within the reference's
+    ``5e-4 max(scale, 1)``, each rank's all-to-all bytes equal to
+    ``analytic_a2a_bytes``; (d) ``bench_moe_dispatch`` through the runner.
+    Returns the launch counts of (a) and (b)."""
+    from repro_torch.bench.moe import MoEDispatchSpec, analytic_a2a_bytes
+    from repro_torch.dist.ranks import get_pool
+    from repro_torch.models import moe as moe_layer
+
+    t0 = phase(f"13. MoE serving, the a2a path and bench_moe_dispatch "
+               f"(budget {MOE_BUDGET_S} s; cuts: mixtral-8x7b at "
+               f"{MIXTRAL_LAYERS} of its 32 layers, arctic-480b at "
+               f"{ARCTIC_LAYERS} of its 35, the a2a layer in float32 at "
+               f"capacity factor 8 on {A2A_TOKENS[0] * A2A_TOKENS[1]} "
+               f"tokens)")
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=MIXTRAL_LAYERS)
+    print(f"   (a) mixtral-8x7b cut to {cut.num_layers} of its 32 layers, "
+          f"max_len {MIXTRAL_MAX_LEN}")
+    want_k5 = dense_model(cut, dev, MOE_REQS, rates=True,
+                          max_len=MIXTRAL_MAX_LEN, logits_len=4500)
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(get_config("arctic-480b"),
+                              num_layers=ARCTIC_LAYERS)
+    print(f"   (b) arctic-480b cut to {cut.num_layers} of its 35 layers")
+    want_k5 += dense_model(cut, dev, ((1000, 1 + SERVE_CHUNK),), rates=True,
+                           logits_len=1000)
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"   launches on the MoE serving path: {launches}; K5 expected "
+          f"{want_k5} (a layer for each prefill into a ring cache and for "
+          f"each forward without a cache)")
+    if launches["K5"] != want_k5 or any(
+            n for k, n in launches.items() if k != "K5"):
+        raise AssertionError(f"MoE serving launched {launches}, K5 "
+                             f"expected {want_k5} times and nothing else")
+    attention_times(dev, bound, peak_bf16, sms, ATTN_MOE)
+    for fn in counters.values():
+        fn.launches = 0  # timing launches are not main-path launches
+
+    # -- (c) the a2a path against the dense path --------------------------
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), dtype="float32",
+                              moe_capacity_factor=8.0)
+    p = moe_layer.init_moe(torch.Generator(dev).manual_seed(A2A_SEED), cfg,
+                           torch.float32, dev)
+    B, S = A2A_TOKENS
+    x = torch.randn(B, S, cfg.d_model, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    y_d, m_d = moe_layer.apply_moe(p, x, cfg, impl="dense")
+    scale = y_d.abs().max().item()
+    tol = 5e-4 * max(scale, 1.0)
+    pool = get_pool(RANKS, dev)
+    print(f"   (c) the a2a path: one mixtral-8x7b layer at full width "
+          f"(experts {tuple(p['w_gate'].shape)} float32), {B} x {S} tokens, "
+          f"capacity factor {cfg.moe_capacity_factor}; a pool of {RANKS} "
+          f"rank processes started in {time.perf_counter() - t1:.3f} s with "
+          f"the layer; dense output scale {scale:.4f}, tolerance {tol:.3e}")
+    for data, model in A2A_GRIDS:
+        t2 = time.perf_counter()
+        grid = moe_layer.ExpertGrid(pool, data, model, cfg=cfg,
+                                    seed=A2A_SEED)
+        print(f"     ({data}, {model}) grid: each rank built the layer "
+              f"from the seed and kept its shard in "
+              f"{time.perf_counter() - t2:.3f} s")
+        for mode in ("replicated", "sp"):
+            t2 = time.perf_counter()
+            y, m = moe_layer.apply_moe(p, x, cfg, ep_mode=mode, grid=grid)
+            wall = time.perf_counter() - t2
+            err = (y - y_d).abs().max().item()
+            lb = abs(float(m["moe_lb_loss"]) - m_d["moe_lb_loss"].item())
+            want = analytic_a2a_bytes(MoEDispatchSpec(
+                batch=B, seq=S, data=data, model=model, ep_mode=mode,
+                capacity_factor=cfg.moe_capacity_factor), cfg)
+            moved = [st["data"]["a2a_bytes"] for st in grid.stats]
+            print(f"     ({data}, {model}) {mode}: max abs diff from dense "
+                  f"{err:.3e}, lb loss diff {lb:.3e}; all-to-all bytes a "
+                  f"rank {moved}, analytic {want['a2a_bytes']:.0f} (cap "
+                  f"{want['cap']:.0f}); {wall * 1e3:.3f} ms")
+            if not err < tol or not lb < 1e-3 or any(
+                    b != want["a2a_bytes"] for b in moved):
+                raise AssertionError(f"a2a ({data}, {model}) {mode} "
+                                     f"disagrees with dense or the bytes")
+        del grid
+    del p, x, y_d
+    close_pools()
+    release()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # -- (d) the dispatch family through the runner ------------------------
+    t1 = time.perf_counter()
+    outdir = ROOT / "build" / "bench" / "moe_dispatch"
+    shutil.rmtree(outdir, ignore_errors=True)
+    text = quietly(bench_run.main, ["--only", "bench_moe_dispatch",
+                                    "--artifacts", str(outdir)])
+    rows = [line for line in text.splitlines()
+            if line.startswith("moe_dispatch.")]
+    written = sorted(os.listdir(outdir)) if outdir.exists() else []
+    for data, model in ((4, 2), (2, 4)):
+        for mode in ("replicated", "sp"):
+            want = analytic_a2a_bytes(MoEDispatchSpec(data=data, model=model,
+                                                      ep_mode=mode))
+            row = next(r for r in rows
+                       if r.startswith(f"moe_dispatch.d{data}m{model}.{mode},"))
+            if f"a2a_bytes={want['a2a_bytes']:.0f};" not in row:
+                raise AssertionError(f"{row}: not the analytic bytes")
+    if len(rows) != 6 or written:
+        raise AssertionError(f"bench_moe_dispatch printed {rows}, wrote "
+                             f"{written}")
+    print(f"   (d) --only bench_moe_dispatch ({time.perf_counter() - t1:.3f}"
+          f" s): {len(rows)} rows, the bytes analytic; no artifact (the "
+          f"reference family writes none)")
+    for row in rows:
+        print(f"     {row}")
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {MOE_BUDGET_S} s budget "
+          f"({card})")
+    if took > MOE_BUDGET_S:
+        raise AssertionError(f"phase 13 took {took:.3f} s, over its "
+                             f"{MOE_BUDGET_S} s budget")
+    return launches
+
+
 def serve_line(m: dict) -> str:
     return (f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.3f} / p95 "
             f"{m['ttft_s']['p95'] * 1e3:.3f} / p99 "
@@ -2285,26 +2477,36 @@ def serve_line(m: dict) -> str:
             f"{m['makespan_s']:.6f} s")
 
 
-def dense_model(cfg, dev, shape: tuple, rates: bool) -> None:
+def dense_model(cfg, dev, shape: tuple, rates: bool,
+                max_len: int = 0, logits_len: int = 0) -> int:
     """Serve ``shape`` ((prompt tokens, new tokens) a request) with ``cfg``
     at full width through the chunked engine captured and eager: the same
     tokens, the time to first token of the 1000-token prompt, and with
-    ``rates`` the decode rate at 4 live slots captured beside eager."""
+    ``rates`` the decode rate at 4 live slots captured beside eager, next
+    to the decode step's bytes bound.  With ``logits_len``, that prompt's
+    prefill logits without a cache (K5) against the same forward on K5's
+    plain version.  Returns the K5 launches this run makes: one a layer
+    for each prefill of more than one token into a ring cache (a full
+    cache's prefill runs the attention oracle) and for the K5 forward."""
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
+    moe = (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+           f"{f' + a dense MLP of {cfg.dense_residual_ff}' if cfg.dense_residual_ff else ''}"
+           f", window {cfg.window}" if cfg.num_experts else "")
     print(f"   {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"heads {cfg.num_heads}/{cfg.num_kv_heads} kv, d_ff {cfg.d_ff} "
-          f"({'gated ' if cfg.mlp_gated else ''}{cfg.act}), vocab "
+          f"({'gated ' if cfg.mlp_gated else ''}{cfg.act}){moe}, vocab "
           f"{cfg.vocab_size}, {n_params} parameters in {cfg.dtype} "
           f"({torch.cuda.memory_allocated() / 1e9:.3f} GB), made from seed "
           f"0 in {time.perf_counter() - t:.3f} s")
     rng = np.random.RandomState(0)
     reqs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), m)
             for n, m in shape]
-    max_len = max(n + m for n, m in shape) + 8 * SERVE_CHUNK + 128
+    max_len = max_len or max(n + m for n, m in shape) + 8 * SERVE_CHUNK + 128
+    ring = cfg.window is not None and cfg.window < max_len
     engines, served_tokens = {}, {}
     for label, graphs in (("captured", True), ("eager", False)):
         t = time.perf_counter()
@@ -2341,8 +2543,20 @@ def dense_model(cfg, dev, shape: tuple, rates: bool) -> None:
     if rates:
         got = {label: decode_rate(engines[label], cfg, rng, label)
                for label in ("eager", "captured")}
+        # a step reads every parameter once, but for the embedding table
+        # (its B rows); the K/V rows it reads are < 0.1 % of that here
+        step_bytes = sum(t.numel() * t.element_size()
+                         for t in leaves(params)) \
+            - params["embed"]["table"].numel() * \
+            params["embed"]["table"].element_size()
+        bound_s = step_bytes / HBM_BYTES_PER_S
         print(f"     decode rate captured / eager: "
-              f"{got['captured'] / got['eager']:.3f}x")
+              f"{got['captured'] / got['eager']:.3f}x; the step's bytes "
+              f"bound: {step_bytes / 1e9:.3f} GB read at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s = {bound_s * 1e3:.3f} ms, "
+              f"{SERVE_SLOTS / bound_s:.3f} tokens/s at {SERVE_SLOTS} slots; "
+              f"captured reaches {got['captured'] * bound_s / SERVE_SLOTS:.3f}"
+              f" of it")
     eng = engines["captured"]
     eng._dev.zero_()  # a chunk's first step (index 0), every slot dead
     with profile(activities=[ProfilerActivity.CPU,
@@ -2360,10 +2574,38 @@ def dense_model(cfg, dev, shape: tuple, rates: bool) -> None:
     for line in top_kernels(kern):
         print("       " + line)
     del eng
+    prefills = sum(e.stats["prefills"] for e in engines.values())
+    del engines
+    k5 = cfg.num_layers * prefills if ring else 0
+    if logits_len:
+        k = [n for n, _ in shape].index(logits_len)
+        prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
+        lg_k, _ = lm.forward(params, cfg, prompt, last_token_only=True)
+        lg_p, _ = lm.forward(params, dataclasses.replace(
+            cfg, kernel_impl="plain"), prompt, last_token_only=True)
+        k5 += cfg.num_layers
+        lg_k, lg_p = lg_k.float(), lg_p.float()
+        rel = ((lg_k - lg_p).norm() / lg_p.norm()).item()
+        print(f"     {logits_len}-token prefill logits without a cache: K5 "
+              f"against its plain version relative L2 {rel:.3e}, max abs "
+              f"diff {(lg_k - lg_p).abs().max().item():.6f}, max |logit| "
+              f"{lg_p.abs().max().item():.4f}; argmax "
+              f"{int(lg_k[0, -1].argmax())} / {int(lg_p[0, -1].argmax())}, "
+              f"served first token {served_tokens['captured'][k][0]}")
+        if lg_k.shape != (1, 1, cfg.vocab_size) or not bool(
+                lg_k.isfinite().all()) or rel > LOGITS_BF16_RTOL:
+            raise AssertionError(f"{cfg.name}: prefill logits with K5 are "
+                                 f"{rel} (relative L2) from the plain "
+                                 f"version's, or not finite")
+        if ring and int(lg_k[0, -1].argmax()) != \
+                served_tokens["captured"][k][0]:
+            raise AssertionError(f"{cfg.name}: the served first token is not "
+                                 f"the argmax of the K5 prefill logits")
     print(f"     peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    del engines, params
+    del params
     release()
+    return k5
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@
                  the deterministic simulator (synthetic clock)
 - ``scaling``  — the ``metg_scaling`` weak-scaling family (paper §V-D/E),
                  every rank count in this process
+- ``moe``      — the ``moe_dispatch`` scenario: analytic MoE all-to-all
+                 bytes and their interconnect roofline
 - ``suite``    — the declarative campaign: a TOML file of families run
                  as ``python -m repro_torch.bench.run`` subprocesses
                  (its CLI, ``python -m repro_torch.bench.suite``, so the
@@ -55,6 +57,7 @@ from .serve import (ServeCostParams, ServeLoadResult, ServeLoadSpec,
                     write_serve_json)
 from .scaling import (RANKS, SCALING_BACKENDS, ScalingResult, ScalingSpec,
                       run_scaling, scaling_artifact, write_scaling_json)
+from .moe import MoEDispatchSpec, analytic_a2a_bytes, moe_dispatch_report
 
 __all__ = [
     "METGResult",
@@ -126,4 +129,7 @@ __all__ = [
     "run_scaling",
     "scaling_artifact",
     "write_scaling_json",
+    "MoEDispatchSpec",
+    "analytic_a2a_bytes",
+    "moe_dispatch_report",
 ]

@@ -14,6 +14,8 @@ schema-checked ``BENCH_<scenario>.json`` per scenario into
                          rank sweep {1,2,4,8} in this process, the rank
                          count a backend option (``--ranks`` narrows it)
   bench_metg_validation  Figure 14 / Table 6 (METG predicts the limit)
+  bench_moe_dispatch     MoE dispatch comm volume (SP-aware EP vs token
+                         replication): analytic a2a bytes at the link rate
   bench_metg_payload     §V-F study: communication hiding — payload sweep,
                          comm_overlap on/off (overlap-efficiency curve)
   bench_metg_imbalance   §V-G study: imbalance mitigation — work stealing
@@ -59,6 +61,7 @@ MODULES = [
     "bench_imbalance",
     "bench_metg_scaling",
     "bench_metg_validation",
+    "bench_moe_dispatch",
     "bench_metg_payload",
     "bench_metg_imbalance",
     "bench_serve_load",

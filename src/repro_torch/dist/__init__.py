@@ -4,15 +4,18 @@
   ``repro.dist.collectives`` planning (placement, padding of ragged
   widths, per-pair slot layout, the one-sided put schedule), and its
   runtime half (``CommPlan.exchange``, ``onesided_push``/``onesided_wait``)
-  run on a rank with that rank's communicator
+  run on a rank with that rank's communicator, and the MoE token
+  all-to-all (``TokenA2APlan``, ``dispatch_capacity``)
 - ranks: ``RankPool``, N rank processes in one gloo group and the
   controller's channel to them (the counterpart of a mesh axis plus
   ``shard_map``), and ``RankComm``, a rank's communicator, which stages
-  every exchanged tensor through host buffers
+  every exchanged tensor through host buffers; ``RankComm.grid`` gives
+  its communicators over the axes of a ``(data, model)`` grid
+  (``GridComm``)
 """
-from .collectives import (MODES, CommPlan, dependency_reach,
-                          directional_reach, plan_comm)
-from .ranks import RankComm, RankError, RankPool, get_pool
+from .collectives import (MODES, CommPlan, TokenA2APlan, dependency_reach,
+                          directional_reach, dispatch_capacity, plan_comm)
+from .ranks import GridComm, RankComm, RankError, RankPool, get_pool
 
 __all__ = [
     "MODES",
@@ -20,6 +23,9 @@ __all__ = [
     "dependency_reach",
     "directional_reach",
     "plan_comm",
+    "TokenA2APlan",
+    "dispatch_capacity",
+    "GridComm",
     "RankComm",
     "RankError",
     "RankPool",

@@ -34,11 +34,16 @@ reference names the mesh axis.  ``exchange`` and ``onesided_push`` with
 ``async_op=True`` return the exchange in flight (its ``wait()`` gives the
 result), so a program can post step t's rows and wait only before step
 t+1's body reads them; the values are the same either way.
+
+``TokenA2APlan`` and ``dispatch_capacity`` are the MoE token all-to-all
+(dispatch and combine over the ``data`` axis of a rank grid,
+``models.moe``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -431,3 +436,77 @@ def _plan_a2a(graph: TaskGraph, ndev: int, axis: str,
         iters=iters, send_counts=send_counts, a2a_cap=cap,
         a2a_send_idx=send_idx,
     )
+
+
+# ---------------------------------------------- dynamic token all-to-all
+def dispatch_capacity(sends: int, ndev: int, factor: float) -> int:
+    """Rows per destination-rank buffer for ``sends`` routed items.
+
+    ``factor`` is the MoE capacity factor; the result is padded to a
+    multiple of 8 with a floor of 8, as the reference pads it to the TPU's
+    sublane tile, so that both packages plan the same buffers.  Sends
+    beyond a destination's capacity are dropped deterministically in send
+    order (``TokenA2APlan.route``).
+    """
+    return max(8, int(math.ceil(factor * sends / ndev / 8.0) * 8))
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenA2APlan:
+    """Routing-dependent all-to-all over one axis of ranks (MoE dispatch
+    and combine).
+
+    The static part — ``cap`` rows per destination, slot assignment by
+    arrival order, the forward and reverse ``all_to_all`` — is planned
+    here; the per-row destinations arrive at run time from the router.
+    ``route`` is a pure function of them; ``dispatch`` and ``combine`` run
+    on a rank with the axis's communicator (``dist.ranks.RankComm``),
+    where the reference runs inside ``shard_map`` and names the axis.
+    Volume per rank per direction: ``ndev * cap`` rows.
+    """
+
+    ndev: int
+    cap: int
+
+    def route(self, dest: torch.Tensor):
+        """dest (M,) -> (slot, keep).
+
+        ``slot`` is each row's arrival index among same-destination rows
+        (deterministic in send order: the capacity drop); rows with
+        ``slot >= cap`` are parked on the overflow slot ``cap`` and masked
+        by ``keep``.
+        """
+        onehot = torch.zeros(dest.shape[0], self.ndev, dtype=torch.int64,
+                             device=dest.device)
+        onehot.scatter_(1, dest.long()[:, None], 1)
+        slot = torch.cumsum(onehot, dim=0) - onehot
+        slot = (slot * onehot).sum(-1)
+        keep = slot < self.cap
+        return torch.where(keep, slot, self.cap), keep
+
+    def dispatch(self, dest: torch.Tensor, slot: torch.Tensor,
+                 rows: torch.Tensor, comm, tag: int = 0, fill=0):
+        """Exchange rows (M, ...) toward their destination ranks.
+
+        Returns this rank's received rows, flattened to ``(ndev * cap,
+        ...)``: row ``s * cap + k`` is the k-th row rank ``s`` sent here.
+        Empty and overflow slots hold ``fill``.
+        """
+        shape = (self.ndev, self.cap + 1) + tuple(rows.shape[1:])
+        buf = torch.full(shape, fill, dtype=rows.dtype, device=rows.device)
+        # rows past the capacity all land on the overflow slot, cut below
+        buf[dest.long(), slot] = rows
+        recv = comm.all_to_all(buf[:, :self.cap].contiguous(), tag).wait()
+        return recv.reshape((self.ndev * self.cap,) + tuple(rows.shape[1:]))
+
+    def combine(self, out_rows: torch.Tensor, dest: torch.Tensor,
+                slot: torch.Tensor, comm, tag: int = 0):
+        """Reverse exchange: ``out_rows`` ``(ndev * cap, ...)`` keyed like
+        ``dispatch``'s result travel back to the senders; returns one row
+        per original send (M, ...).  Dropped sends read the overflow slot
+        — mask the result with ``keep`` from ``route``.
+        """
+        back = comm.all_to_all(out_rows.reshape(
+            (self.ndev, self.cap) + tuple(out_rows.shape[1:])).contiguous(),
+            tag).wait()
+        return back[dest.long(), slot.clamp(0, self.cap - 1)]

@@ -31,6 +31,7 @@ exit.
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import datetime
 import itertools
 import os
@@ -106,7 +107,9 @@ class RankComm:
     of a ppermute, and each offset of a one-sided put, has its own tag, so
     no two messages in flight between two ranks share one);
     ``all_gather`` is tiled in rank order; ``all_to_all`` exchanges the
-    ``(ndev, ...)`` slabs of its input.  Each returns a ``Pending``.
+    ``(ndev, ...)`` slabs of its input; ``all_reduce`` sums.  Each returns
+    a ``Pending``.  A communicator over a subgroup (``grid``'s axes) runs
+    the collectives on it; ``p2p`` takes the pool's rank numbers.
     Before it posts anything an op waits for the device (timed as
     ``sync_s``): the rows it sends come from the body just issued, and a
     host buffer it receives into may still feed an earlier copy to the
@@ -114,14 +117,18 @@ class RankComm:
     zeroes it.
     """
 
-    STATS = ("sync_s", "stage_s", "gloo_s", "ops", "copies", "bytes")
+    STATS = ("sync_s", "stage_s", "gloo_s", "ops", "copies", "bytes",
+             "a2a_bytes")
 
     def __init__(self, rank: int, size: int, device: torch.device,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, group=None):
         self.rank, self.size, self.device = rank, size, device
+        self.group = group  # None: every rank of the pool
+        self.timeout_s = timeout_s
         self.timeout = datetime.timedelta(seconds=timeout_s)
         self._buffers: Dict[tuple, torch.Tensor] = {}
         self._constants: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
+        self._grids: Dict[Tuple[int, int], "GridComm"] = {}
         self.reset_stats()
 
     def reset_stats(self) -> None:
@@ -205,7 +212,8 @@ class RankComm:
         parts = [self._buffer(("gather", tag, r), x) for r in range(self.size)]
 
         def post(outs):
-            return [dist.all_gather(parts, outs[0], async_op=True)]
+            return [dist.all_gather(parts, outs[0], group=self.group,
+                                    async_op=True)]
 
         return self._post([(x, ("gather-in", tag))], post, parts,
                           lambda got: finish(torch.cat(got)))
@@ -213,14 +221,68 @@ class RankComm:
     def all_to_all(self, x: torch.Tensor, tag: int,
                    finish: Callable = _same) -> Pending:
         """Slab ``s`` of ``x`` (``(ndev, ...)``) goes to rank ``s``; slab
-        ``s`` of the result came from rank ``s``."""
+        ``s`` of the result came from rank ``s``.  ``a2a_bytes`` counts
+        the bytes of ``x``, the slab a rank keeps included."""
         got = self._buffer(("a2a", tag), x)
+        self.stats["a2a_bytes"] += x.numel() * x.element_size()
 
         def post(outs):
-            return [dist.all_to_all_single(got, outs[0], async_op=True)]
+            return [dist.all_to_all_single(got, outs[0], group=self.group,
+                                           async_op=True)]
 
         return self._post([(x, ("a2a-in", tag))], post, [got],
                           lambda got: finish(got[0]))
+
+    def all_reduce(self, x: torch.Tensor, tag: int,
+                   finish: Callable = _same) -> Pending:
+        """The sum of every rank's ``x`` (``psum``)."""
+        buf = self._buffer(("sum", tag), x)  # summed in place
+
+        def post(outs):
+            return [dist.all_reduce(outs[0], group=self.group,
+                                    async_op=True)]
+
+        return self._post([(x, ("sum", tag))], post, [buf],
+                          lambda got: finish(got[0]))
+
+    def grid(self, data: int, model: int) -> "GridComm":
+        """Communicators over the two axes of a ``(data, model)`` grid of
+        this communicator's ranks (what the mesh-axis names stand for in
+        the reference): rank ``r`` sits at ``(r // model, r % model)``;
+        the ``data`` axis joins the ranks of one model index, the
+        ``model`` axis those of one data index.  The gloo subgroups are
+        made collectively and kept, so every rank asks for the same grids
+        in the same order (a rank function the controller runs on all of
+        them does)."""
+        if data * model != self.size or min(data, model) < 1:
+            raise ValueError(f"a ({data}, {model}) grid over {self.size} "
+                             f"ranks")
+        hit = self._grids.get((data, model))
+        if hit is None:
+            kw = dict(timeout=self.timeout, backend="gloo")
+            dgroup, _ = dist.new_subgroups_by_enumeration(
+                [[i * model + m for i in range(data)] for m in range(model)],
+                **kw)
+            mgroup, _ = dist.new_subgroups_by_enumeration(
+                [[i * model + m for m in range(model)] for i in range(data)],
+                **kw)
+            di, mi = divmod(self.rank, model)
+            hit = GridComm(
+                self,
+                RankComm(di, data, self.device, self.timeout_s, dgroup),
+                RankComm(mi, model, self.device, self.timeout_s, mgroup))
+            self._grids[(data, model)] = hit
+        return hit
+
+
+@dataclasses.dataclass(frozen=True)
+class GridComm:
+    """A rank's communicators on a ``(data, model)`` grid: ``world`` over
+    every rank, ``data`` and ``model`` over its two axes (``.rank`` is the
+    rank's index on that axis, ``.size`` the axis size)."""
+    world: RankComm
+    data: RankComm
+    model: RankComm
 
 
 class RankContext:

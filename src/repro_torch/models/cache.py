@@ -3,7 +3,8 @@
 ``LayerCache`` kinds, per block kind:
   full  - (B, max_len, Hkv, Dh) K/V, for full-attention layers
   ring  - (B, W, Hkv, Dh) sliding-window ring buffer (local attention,
-          whenever the window W is below ``max_len``)
+          and attention or MoE blocks with ``cfg.window``, whenever the
+          window W is below ``max_len``)
   ssm   - Mamba-2 conv tails (B, K-1, d_inner) and (B, K-1, 2GN) and the
           float32 SSD state (B, H, P, N)
   rglru - conv tail (B, K-1, w) and the float32 recurrent state (B, w)
@@ -82,14 +83,10 @@ def init_layer_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                              device=device),
             h=torch.zeros(batch, w, dtype=torch.float32, device=device),
         )
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         window = cfg.window
     elif kind == "local_attn":
         window = cfg.local_window
-    elif kind == "moe":
-        raise NotImplementedError(
-            f"no {kind!r} cache in the port yet: MoE blocks come with the "
-            f"MoE slice")
     else:
         raise ValueError(kind)
     Hkv, Dh = cfg.num_kv_heads, cfg.head_dim

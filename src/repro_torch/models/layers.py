@@ -41,15 +41,21 @@ def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
     float32 and cast, as the reference's ``_dense_init``.  A tensor of more
     than ``_DRAW`` elements is drawn in slices of its leading dim, so that
     the float32 draw of a stacked weight (32 layers of Qwen2-72B's MLP: 31
-    GB) never sits beside its cast."""
+    GB) never sits beside its cast; where one slice of the leading dim is
+    still larger (a layer of Arctic's experts: 4.5G elements), of its
+    leading dims merged until a slice fits."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    rows = max(1, _DRAW * shape[0] // max(out.numel(), 1))
+    lead = 0  # leading dims merged into the sliced one
+    while lead < len(shape) - 1 and int(np.prod(shape[lead:])) > _DRAW:
+        lead += 1
+    flat = out.view((-1,) + tuple(shape[lead:])) if lead else out[None]
+    rows = max(1, _DRAW // max(int(np.prod(flat.shape[1:])), 1))
     scale = 1.0 / np.sqrt(max(in_axis_size, 1))
-    for i in range(0, shape[0], rows):
-        w = torch.empty(out[i:i + rows].shape, dtype=torch.float32,
+    for i in range(0, flat.shape[0], rows):
+        w = torch.empty(flat[i:i + rows].shape, dtype=torch.float32,
                         device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        out[i:i + rows] = w.mul_(scale)
+        flat[i:i + rows] = w.mul_(scale)
     return out
 
 

@@ -4,9 +4,13 @@
 Block kinds (cycled through ``cfg.block_pattern``):
   attn       - pre-norm GQA attention + gated or plain MLP
   local_attn - the same with ``cfg.local_window`` sliding window
+  moe        - attention (``cfg.window``) + top-k MoE FFN, plus Arctic's
+               dense MLP in parallel (``cfg.dense_residual_ff``)
   ssd        - Mamba-2 mixer block (no MLP)
   rglru      - Griffin recurrent block + MLP
-``moe`` raises ``NotImplementedError`` naming the slice that brings it.
+A config with a modality frontend raises ``NotImplementedError`` naming
+the slice that brings it.  ``forward`` runs the MoE dense path and
+returns no aux losses (the training slice sums them over layers).
 
 Parameters are a nested dict of tensors with the reference's keys:
 ``embed``, ``final_norm``, ``head`` when the embeddings are not tied, and
@@ -24,22 +28,22 @@ import torch
 from ..backends.base import resolve_device
 from . import layers as L
 from .cache import LayerCache, unstack_caches
+from .moe import apply_moe, init_moe
 from .rglru import apply_rglru_block, init_rglru_block
 from .ssm import apply_ssd_block, init_ssd_block
 
-KINDS = ("attn", "local_attn", "ssd", "rglru")
-_LATER = {
-    "moe": "MoE blocks come with the MoE slice (models/moe.py and its "
-           "configurations, mixtral-8x7b and arctic-480b)",
-}
+KINDS = ("attn", "local_attn", "moe", "ssd", "rglru")
 
 
 def check_supported(cfg) -> None:
     for kind in sorted(set(cfg.pattern_for_depth())):
         if kind not in KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet; "
-                f"{_LATER.get(kind, 'no slice brings it yet')}")
+                f"{cfg.name}: block kind {kind!r} is not ported")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend (inputs as "
+            f"embeddings) comes with the VLM and audio slice")
 
 
 def scanned(cfg) -> bool:
@@ -70,6 +74,17 @@ def init_block(gen, kind: str, cfg, dtype, device,
             "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
             "mlp": L.init_mlp(gen, cfg, dtype, device, layers),
         }
+    if kind == "moe":
+        p = {
+            "norm1": L.init_norm(d, dtype, cfg.norm, device, layers),
+            "attn": L.init_attention(gen, cfg, dtype, device, layers),
+            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
+            "moe": init_moe(gen, cfg, dtype, device, layers),
+        }
+        if cfg.dense_residual_ff:
+            p["mlp"] = L.init_mlp(gen, cfg, dtype, device, layers,
+                                  d_ff=cfg.dense_residual_ff)
+        return p
     if kind == "ssd":
         return {"ssd": init_ssd_block(gen, cfg, dtype, device, layers)}
     if kind == "rglru":
@@ -127,13 +142,19 @@ def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
     """Returns (x', new cache tensors of a recurrent block or None).  An
     attention block updates its cache in place itself."""
     new = None
-    if kind in ("attn", "local_attn"):
+    if kind in ("attn", "local_attn", "moe"):
         window = cfg.local_window if kind == "local_attn" else cfg.window
         h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
         x = x + L.apply_attention(p["attn"], h, cfg, positions, window=window,
                                   cache=cache, kernel_impl=cfg.kernel_impl)
         h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        if kind == "moe":
+            m, _ = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl)
+            if "mlp" in p:  # Arctic: a dense MLP in parallel
+                m = m + L.apply_mlp(p["mlp"], h, cfg)
+            x = x + m
+        else:
+            x = x + L.apply_mlp(p["mlp"], h, cfg)
     elif kind == "ssd":
         a, new = apply_ssd_block(p["ssd"], x, cfg, cache=cache,
                                  kernel_impl=cfg.kernel_impl)

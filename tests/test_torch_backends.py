@@ -289,6 +289,8 @@ def test_import_and_run_load_no_jax_or_reference_module():
         "import sys\n"
         "import repro_torch, repro_torch.bench, repro_torch.serve\n"
         "import repro_torch.models.model, repro_torch.kernels.ops\n"
+        "import repro_torch.models.moe, repro_torch.bench.moe\n"
+        "import repro_torch.launch.mesh\n"
         "from repro_torch.backends import get_backend\n"
         "from repro_torch.core import make_graph, check_outputs\n"
         "g = make_graph(width=4, height=3, iterations=2)\n"

@@ -746,7 +746,8 @@ def test_reduced_gemma_serves_on_card_through_k5(cuda):
 SERVE_REQS = [([1, 2, 3], 7), ([4, 5], 3), ([6], 5), (list(range(1, 38)), 5),
               ([9, 1, 9], 9)]
 SERVE_MODELS = [("mamba2-2.7b", 64), ("recurrentgemma-2b", 96),
-                ("qwen1.5-0.5b", 64)]
+                ("qwen1.5-0.5b", 64), ("mixtral-8x7b", 96),
+                ("arctic-480b", 64)]
 
 
 def reduced_model(name, cuda):
@@ -901,3 +902,81 @@ def test_a_capture_that_fails_raises(cuda, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.stdout.strip().splitlines()[-1].startswith("raised "), \
         proc.stdout + proc.stderr
+
+
+# ------------------------------------------------------------ the MoE block
+@pytest.mark.gpu
+def test_moe_dense_on_card_matches_the_cpu_path(cuda, monkeypatch):
+    """bf16 experts: the card's ``bmm`` with a float32 output against the
+    CPU's one-expert-at-a-time upcast.  The float32 sum before the cast to
+    bf16 within 1e-4 of its scale (float32 sums in another order, and a
+    product near a bf16 rounding boundary of ``h``), and the card's path
+    with any one product rounded to bf16 outside ten times that; the
+    routing identical."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(reduced(get_config("mixtral-8x7b")),
+                              dtype="bfloat16")
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                     "cpu")
+    x = torch.randn(2, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+                        torch.bfloat16)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    y_cpu, m_cpu = moe.apply_moe(p, x, cfg)
+    y, m = moe.apply_moe(pc, x.to(cuda), cfg)
+    assert y.dtype == torch.bfloat16 and y.is_cuda
+    assert abs(float(m["moe_lb_loss"]) - float(m_cpu["moe_lb_loss"])) < 1e-5
+    x2 = x.reshape(-1, cfg.d_model)
+    want, _, _ = moe._dense_mix(p, x2, cfg)
+    got, _, _ = moe._dense_mix(pc, x2.to(cuda), cfg)
+    assert torch.equal(got.to(torch.bfloat16).reshape(y.shape), y)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    exact = moe._bmm_f32
+    for which in range(3):
+        calls = []
+
+        def rounding(a, b):
+            out = exact(a, b)
+            calls.append(None)
+            return (out.to(torch.bfloat16).float()
+                    if len(calls) - 1 == which else out)
+        monkeypatch.setattr(moe, "_bmm_f32", rounding)
+        bad, _, _ = moe._dense_mix(pc, x2.to(cuda), cfg)
+        assert float((bad.cpu() - want).abs().max()) > 1e-3 * scale, which
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["replicated", "sp"])
+def test_moe_a2a_on_card_ranks_matches_dense(cuda, mode):
+    """The a2a path on 4 rank processes sharing the card, (2, 2) grid,
+    float32 at capacity factor 8: within the reference's 5e-4 max(scale,
+    1) of the dense path, each rank's all-to-all bytes the analytic
+    count."""
+    import dataclasses
+
+    from repro_torch.bench.moe import MoEDispatchSpec, analytic_a2a_bytes
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.dist.ranks import get_pool
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(reduced(get_config("mixtral-8x7b")),
+                              moe_capacity_factor=8.0)
+    grid = moe.ExpertGrid(get_pool(4, cuda), 2, 2, cfg=cfg, seed=5)
+    p = moe.init_moe(torch.Generator(cuda).manual_seed(5), cfg,
+                     torch.float32, cuda)
+    x = torch.randn(8, 32, cfg.d_model, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    y_d, _ = moe.apply_moe(p, x, cfg, impl="dense")
+    y, _ = moe.apply_moe(p, x, cfg, ep_mode=mode, grid=grid)
+    assert y.is_cuda
+    tol = 5e-4 * max(float(y_d.abs().max()), 1.0)
+    assert float((y - y_d).abs().max()) < tol
+    want = analytic_a2a_bytes(MoEDispatchSpec(batch=8, seq=32, data=2,
+                                              model=2, ep_mode=mode))
+    assert [s["data"]["a2a_bytes"] for s in grid.stats] == \
+        [want["a2a_bytes"]] * 4

@@ -171,7 +171,8 @@ def meta_params(cfg):
 
 
 @pytest.mark.parametrize("name", [MODEL, "recurrentgemma-2b",
-                                  "qwen1.5-0.5b"])
+                                  "qwen1.5-0.5b", "mixtral-8x7b",
+                                  "arctic-480b"])
 @pytest.mark.parametrize("mode", ["chunked", "host"])
 def test_decode_step_reads_no_device_value_on_the_host(name, mode):
     """The step the engine captures runs on the meta device, where any

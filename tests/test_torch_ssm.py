@@ -84,8 +84,8 @@ def spy(monkeypatch, module, name):
 
 # ---------------------------------------------------------------- configs
 def test_config_copy_equals_reference():
-    names = [MODEL, "recurrentgemma-2b", "yi-6b", "qwen1.5-0.5b",
-             "qwen2-72b", "minitron-8b"]
+    names = ["mixtral-8x7b", "arctic-480b", MODEL, "recurrentgemma-2b",
+             "yi-6b", "qwen1.5-0.5b", "qwen2-72b", "minitron-8b"]
     for name in names:
         ref, port = rcfg.get_config(name), tcfg.get_config(name)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -97,7 +97,7 @@ def test_config_copy_equals_reference():
     assert tcfg.ALL_ARCHS == names
     assert names == [n for n in rcfg.ALL_ARCHS if n in names]
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("mixtral-8x7b")
+        tcfg.get_config("qwen2-vl-2b")
 
 
 # -------------------------------------------------------------- SSD (K6)
@@ -571,12 +571,23 @@ def test_params_from_jax_rejects_a_foreign_tree(reduced_pair):
 
 
 def test_other_block_kinds_name_their_slice():
+    """Every block kind of the reference builds (``moe`` since the MoE
+    slice, here in a heterogeneous stack with its cache); a modality
+    frontend names the slice that brings it."""
     cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config(MODEL)),
-                              block_pattern=("attn", "moe"))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TM.init_model(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        init_caches(cfg, 1, 8, device="cpu")
+                              block_pattern=("attn", "moe"), num_experts=4,
+                              num_experts_per_tok=2)
+    params = TM.init_model(cfg, 0, device="cpu")
+    assert [sorted(b) for b in params["blocks"]] == [
+        ["attn", "mlp", "norm1", "norm2"], ["attn", "moe", "norm1", "norm2"]]
+    assert [c.kind for c in init_caches(cfg, 1, 8, device="cpu")] == \
+        ["full", "full"]
+    logits, _ = TM.forward(params, cfg, torch.zeros(1, 3, dtype=torch.long))
+    assert logits.shape == (1, 3, cfg.vocab_size)
+    vlm = dataclasses.replace(cfg, block_pattern=("attn",),
+                              frontend="vision")
+    with pytest.raises(NotImplementedError, match="VLM and audio slice"):
+        TM.init_model(vlm, 0, device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -39,8 +39,7 @@ def mapped(doc):
 def test_families_are_the_reference_families_less_the_lm_ones():
     from benchmarks.run import MODULES
 
-    assert FAMILIES == [m for m in MODULES if m not in (
-        "bench_model_step", "bench_moe_dispatch")]
+    assert FAMILIES == [m for m in MODULES if m != "bench_model_step"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -53,7 +52,8 @@ def test_family_writes_the_reference_artifacts(family, tmp_path,
     want_rows = importlib.import_module(f"benchmarks.{family}").run(ctx)
     prun.main(["--only", family, "--smoke", "--timer", "synthetic",
                "--artifacts", str(tmp_path / "port")])
-    got = sorted(os.listdir(tmp_path / "port"))
+    port = tmp_path / "port"  # bench_moe_dispatch writes no artifact
+    got = sorted(os.listdir(port)) if port.exists() else []
     assert got == sorted(port_label(os.path.basename(p)[:-5]) + ".json"
                          for p in ctx.written)
     for path in ctx.written:
@@ -68,9 +68,17 @@ def test_family_writes_the_reference_artifacts(family, tmp_path,
     rows = mod.run(BenchContext(smoke=True, timer=SyntheticTimer()))
     # the same rows; a family over the registry takes it in name order,
     # and the port's names sort otherwise
-    assert sorted((r.name, r.us_per_call, r.derived) for r in rows) == \
-        sorted((port_label(r.name), r.us_per_call, r.derived)
-               for r in want_rows)
+    want = sorted((port_label(r.name), r.us_per_call, r.derived)
+                  for r in want_rows)
+    if family == "bench_moe_dispatch":
+        # its microseconds are bytes over the link rate, the card's in the
+        # port and the TPU's in the reference: equal once rescaled, to the
+        # rounding of the one division
+        from repro.launch.roofline import LINK_BW
+        from repro_torch.bench.moe import LINK_BW as PORT_LINK_BW
+        want = [(n, pytest.approx(us * LINK_BW / PORT_LINK_BW, rel=1e-12),
+                 d) for n, us, d in want]
+    assert sorted((r.name, r.us_per_call, r.derived) for r in rows) == want
 
 
 def test_runner_rejects_an_unknown_family_and_an_empty_filter(capsys):
