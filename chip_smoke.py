@@ -8,8 +8,8 @@ raise on failure:
 
 1. the card: name and power limit (nvidia-smi), SMs, max SM clock, versions;
 2. the build, timed, with ptxas's registers, spills and warnings for every
-   kernel (K5's eight instantiations and K6's nine among them), the HGMMA
-   (wgmma) and UTMALDG (TMA load) instructions in the SASS of K5's four
+   kernel (K5's ten instantiations and K6's nine among them), the HGMMA
+   (wgmma) and UTMALDG (TMA load) instructions in the SASS of K5's five
    bf16 ones, and the HGMMA instructions of K6's (failing on none in the
    four tensor-core passes);
 3. every kernel against its plain PyTorch version on the card, at the
@@ -163,7 +163,26 @@ raise on failure:
    ep_modes, each rank building its shard from the seed, against the
    dense path within the reference's 5e-4 max(scale, 1) and each rank's
    all-to-all bytes equal to ``analytic_a2a_bytes``; and
-   ``bench_moe_dispatch`` through the runner.
+   ``bench_moe_dispatch`` through the runner;
+14. training, in TRAIN_BUDGET_S (150 s): K5 at head size 80 (HuBERT X-Large's
+   heads: its encoder's shape, a causal case and a ragged length, float32
+   and bf16) against its plain version, timed at the encoder's shape beside
+   its plain version and SDPA; the gradients through K5 and K6 (their
+   autograd functions: the kernel forward, the plain version's graph
+   backward) against the plain path's; ``hubert-xlarge`` whole (48 layers,
+   full width, bf16, remat "full") trained HUBERT_STEPS steps at batch 8 x
+   1024 frames of ``make_batch`` embeddings through ``make_train_step``,
+   the counts zeroed before each step and read after (K5 twice a layer,
+   nothing else), its first step against the same step on K5's plain
+   version, the step's wall, tokens/s, peak memory, its share of the bf16
+   peak at 6 N tokens and one profiled step; ``qwen2-vl-2b`` whole, a
+   forward on 1024 embeddings on K5 and on its plain version, and
+   DENSE_REQS served captured and eager; the ``Trainer`` on HuBERT cut to
+   TRAINER_LAYERS layers at full width, a run failed at step 3 and
+   restarted against an uninterrupted run, bit for bit; and a Mamba-2
+   train step cut to MAMBA_TRAIN_LAYERS layers, K6 twice a layer under
+   autograd, every SSD parameter's gradient non-zero, against the plain
+   path.
 The "kernel times" phase runs the plain K3 and K4 (1.13-1.44 s a call) one
 call a window, a cut for the time phase 13 takes.  It also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -173,7 +192,9 @@ replayed run's device time and wall a timestep beside ``torch-scan``'s wall.
 The line before the last lists the kernels with their launches on the main
 path (and the path they were counted on; ``planner_launches``: through
 ``torch-auto`` in phase 11, a rank's included; ``moe_launches``: on
-phase 13's MoE serving), errors, times, bounds and
+phase 13's MoE serving; ``train_launches``: a train step of phase 14, K5's
+on HuBERT, K6's on the Mamba-2 cut; K5's ``shapes``: its row at HuBERT's
+D = 80), errors, times, bounds and
 (K5) the time of one library call for the same function; for K5 and K6,
 whose main paths are bf16, the bf16 kernel's (K6's summed over its three
 passes, its bound at the bf16 tensor-core peak).  The
@@ -239,6 +260,12 @@ from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.cache import init_caches  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.data import DataConfig, make_batch  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.optim.adamw import global_norm  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
+from repro_torch.train.trainer import LoopConfig, Trainer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_LANES_PER_SM = 128
@@ -345,6 +372,27 @@ ATTN_MOE = ((1, 4500, 4500, 32, 8, 128, True, 4096, 0),
 # kernel-test tolerance; a bf16 output one bf16 ulp of o_plain more
 ATTN_TOL = 2e-5
 BF16_FLOP_PER_SM_CLOCK = 4096  # dense tensor cores: 989.4 TFLOP/s, 1830 MHz
+# phase 14: training, in at most TRAIN_BUDGET_S.  K5 at HuBERT X-Large's
+# heads (D = 80): its encoder's shape (B, S, H = 8, 1024, 16, non-causal),
+# a causal case and a ragged length
+TRAIN_BUDGET_S = 150
+ATTN_D80 = ((8, 1024, 1024, 16, 16, 80, False, None, 0),
+            (2, 1024, 1024, 16, 16, 80, True, None, 0),
+            (3, 777, 777, 16, 16, 80, False, None, 0))
+HUBERT_BATCH, HUBERT_STEPS = (8, 1024), 3  # (batch, frames), steps trained
+# gradients through K5 and K6 against the plain path's: both backward
+# passes run the same plain graph on the same inputs (the kernel path
+# recomputes it), so they differ at most by the card's reduction order
+GRAD_RTOL = 1e-5  # of each input's largest plain gradient
+# the first bf16 training step on K5 against the same step on K5's plain
+# version: the forward differs by a bf16 rounding a block, so the loss of
+# ~ln(vocab) moves far less than a percent and the grad norm by less than
+# a tenth
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-2, 0.1
+TRAINER_LAYERS = 2  # of HuBERT's 48 for the save/restore run (~0.55 GB a
+# checkpoint at full width, not 13 GB)
+MAMBA_TRAIN_LAYERS, MAMBA_BATCH = 2, (4, 1024)  # of its 64 layers
+QWEN_VL_FRAMES = 1024  # embeddings of one forward of qwen2-vl-2b
 
 
 class ServeCase(NamedTuple):
@@ -765,7 +813,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
           f"{lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
           f"uses {lib.ssd_chunked_smem_bytes(64, 128, 128)} bytes of shared "
           f"memory a CTA at P=64, N=128, chunk 128")
-    for D in (32, 64, 128, 256):  # dynamic, so ptxas does not count it
+    for D in (32, 64, 80, 128, 256):  # dynamic, so ptxas does not count it
         print(f"   K5 at D={D}: {lib.flash_attention_bf16_smem_bytes(D)} "
               f"bytes of shared memory a CTA in bf16 (wgmma, TMA), "
               f"{lib.flash_attention_f32_smem_bytes(D)} in float32")
@@ -777,7 +825,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     sass = sass_counts(_build.library_path(), "flash_attention_sm90")
     for name, (hgmma, tma) in sorted(sass.items()):
         print(f"   {name}: {hgmma} HGMMA, {tma} UTMALDG instructions (SASS)")
-    if len(sass) != 4 or not all(h and t for h, t in sass.values()):
+    if len(sass) != 5 or not all(h and t for h, t in sass.values()):
         raise AssertionError(f"K5's bf16 kernels are not all on wgmma and "
                              f"TMA: {sass}")
     sass = sass_counts(_build.library_path(), "ssd_chunked")
@@ -1231,6 +1279,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         oracles, results, sms, card, counters)
     dense_phase(dev, card)
     moe_launches = moe_phase(dev, card, counters, bound, peak_bf16, sms)
+    train = train_phase(dev, card, counters, bound, peak_bf16, sms)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1255,9 +1304,11 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "rank_launches": rank_launches.get(k, {}),
              "planner_launches": planner_launches.get(k, 0),
              "moe_launches": moe_launches[k],
+             "train_launches": train["launches"][k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
-             "library_ms": None if lib is None else lib.device}
+             "library_ms": None if lib is None else lib.device,
+             **({"shapes": train["shapes"]} if k == "K5" else {})}
             for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
 
 
@@ -1886,7 +1937,7 @@ def attention_times(dev, bound, peak_bf16: float, sms: int,
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                qh, kh, vh, attn_mask=mask, is_causal=mask is None and causal,
                 enable_gqa=True)
 
         plain = flash_attention_plain(q, k, v, **kw).float()
@@ -1896,13 +1947,16 @@ def attention_times(dev, bound, peak_bf16: float, sms: int,
         pt = timed(lambda: flash_attention_plain(q, k, v, **kw), 3)
         lt = timed(sdpa, 20)
         flops, nbytes = attn_cost(*shape, causal, window, q_offset, 2)
-        how = "is_causal" if mask is None else "window mask"
+        how = ("window mask" if mask is not None else "is_causal" if causal
+               else "no mask")
         b16, by = bound(flops, nbytes, peak_bf16)
         B, Sq, Skv, Hq, _, D = shape
         # the products the kernel issues: for each 64-row half of a CTA and
-        # each 64-key tile in its band, S = Q K^T and P_hi V + P_lo V
+        # each 64-key tile in its band, S = Q K^T over D and P_hi V + P_lo V
+        # over D padded to whole 64-column boxes (128 at D = 80)
         tiles = k5_tiles(Sq, Skv, causal, window, q_offset)
-        issued = B * Hq * tiles * 3 * 2 * 64 * 64 * D
+        cols = D if D < 64 else -(-D // 64) * 64
+        issued = B * Hq * tiles * 2 * 64 * 64 * (D + 2 * cols)
         heavy, even, makespan = k5_grid(Sq, Skv, Hq, causal, window,
                                         q_offset, sms)
         print(f"   K5 at S={S} (B={B}, Hq={Hq}, Hkv={shape[4]}, D={D}, "
@@ -1917,7 +1971,8 @@ def attention_times(dev, bound, peak_bf16: float, sms: int,
               f"{flops / t.device / 1e9:.3f} TFLOP/s of the function, "
               f"{1.5 * flops / t.device / 1e9:.3f} of its 1.5x products "
               f"(P as two bf16 terms); it issues {issued / 1e9:.3f} GFLOP "
-              f"({tiles} 64x64 tiles a head), "
+              f"({tiles} 64x64 tiles a head, {(D + 2 * cols) / (3 * D):.3f}x "
+              f"the products of the exact head size), "
               f"{issued / t.device / 1e9:.3f} TFLOP/s; grid: "
               f"{-(-Sq // 128) * Hq} CTAs, the heaviest {heavy} tile "
               f"products, an even share {even:.1f} an SM, the in-order "
@@ -2606,6 +2661,329 @@ def dense_model(cfg, dev, shape: tuple, rates: bool,
     del params
     release()
     return k5
+
+
+# ------------------------------------------------------------ 14. training
+def grad_agree(name: str, kernel, plain, inputs: list, counter) -> float:
+    """Gradients of a fixed linear function of ``kernel(*inputs)`` (its
+    outputs dotted with seeded weights, summed) against the same through
+    ``plain``: within GRAD_RTOL of each input's largest plain gradient,
+    and not zero (the kernel's wrapper cut no graph).  Returns the max abs
+    difference; ``counter`` must count one launch."""
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    gen = torch.Generator(ins[0].device).manual_seed(1)
+
+    def scalar(outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return sum((o.float() * torch.randn(o.shape, generator=gen,
+                                            device=o.device)).sum()
+                   for o in outs)
+
+    n = counter.launches
+    got = torch.autograd.grad(scalar(kernel(*ins)), ins)
+    if counter.launches != n + 1:
+        raise AssertionError(f"{name}: {counter.launches - n} launches, not 1")
+    gen.manual_seed(1)
+    want = torch.autograd.grad(scalar(plain(*ins)), ins)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        print(f"   {name} d/d input {i} {tuple(w.shape)} {str(w.dtype)[6:]}: "
+              f"max abs diff {err:.3e} of max |plain grad| {top:.3e}")
+        if not top > 0 or err > GRAD_RTOL * top or not bool(
+                g.isfinite().all()):
+            raise AssertionError(f"{name}: gradient {i} through the kernel "
+                                 f"is zero, not finite or not the plain "
+                                 f"path's")
+        worst = max(worst, err)
+    return worst
+
+
+def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
+                sms: int) -> dict:
+    """Training on the card, in at most TRAIN_BUDGET_S: (1) K5 at D = 80
+    (ATTN_D80, float32 and bf16) against its plain version, and timed at
+    HuBERT's encoder shape beside its plain version and SDPA; (2) the
+    gradients through K5 and K6 against the plain path's; (3)
+    ``hubert-xlarge`` whole (48 layers, bf16, remat "full") trained
+    HUBERT_STEPS steps through ``make_train_step`` on ``make_batch``
+    embeddings, the counts zeroed before each step and read after, its
+    first step against the same step on K5's plain version; (4)
+    ``qwen2-vl-2b`` whole: a forward on embeddings, on K5 and on its plain
+    version, and text requests served captured and eager; (5) the
+    ``Trainer`` on HuBERT at TRAINER_LAYERS layers, full width: a run with
+    a failure injected, restarted, against an uninterrupted run, bit for
+    bit; (6) a Mamba-2 train step at MAMBA_TRAIN_LAYERS of its 64 layers,
+    full width, K6 under autograd.  Returns {"launches": {K: a training
+    step's launches}, "shapes": [K5's D = 80 row]}."""
+    t0 = phase(f"14. training (budget {TRAIN_BUDGET_S} s; cuts: the Trainer "
+               f"on hubert-xlarge at {TRAINER_LAYERS} of its 48 layers, "
+               f"Mamba-2 at {MAMBA_TRAIN_LAYERS} of its 64)")
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # (1) K5 at D = 80
+    t1 = time.perf_counter()
+    for case in ATTN_D80:
+        *shape, causal, window, q_offset = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(*shape, dev, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            attn_agree(f"{tuple(shape)} causal={causal} {str(dtype)[6:]}",
+                       flash_attention(q, k, v, **kw),
+                       flash_attention_plain(q, k, v, **kw))
+    t80, p80, (b80, by80), l80 = attention_times(dev, bound, peak_bf16, sms,
+                                                 cases=ATTN_D80[:1])
+    print(f"   (1) ({time.perf_counter() - t1:.3f} s)")
+
+    # (2) gradients through K5 and K6
+    t1 = time.perf_counter()
+    *shape, causal, _, _ = ATTN_D80[0]
+    grad_agree(f"K5 {tuple(shape)} bf16", lambda q, k, v: flash_attention(
+        q, k, v, causal=causal), lambda q, k, v: flash_attention_plain(
+        q, k, v, causal=causal), attn_inputs(*shape, dev, torch.bfloat16),
+        flash_attention)
+    grad_agree("K5 (2, 300, 300, 8, 2, 64) causal float32",
+               flash_attention, flash_attention_plain,
+               attn_inputs(2, 300, 300, 8, 2, 64, dev), flash_attention)
+    *shape, chunk = SSD_FULL
+    for dtype in (torch.bfloat16, torch.float32):
+        args = ssd_inputs(*shape, dev, dtype=dtype)
+        grad_agree(f"K6 {tuple(shape)} chunk {chunk} {str(dtype)[6:]}",
+                   lambda *a: ssd_chunked(*a, chunk=chunk),
+                   lambda *a: ssd_chunked_plain(*a, chunk=chunk), args,
+                   ssd_chunked)
+    print(f"   (2) ({time.perf_counter() - t1:.3f} s)")
+
+    # (3) hubert-xlarge, whole
+    t1 = time.perf_counter()
+    cfg = get_config("hubert-xlarge")
+    B, S = HUBERT_BATCH
+    tcfg = TS.TrainConfig(warmup_steps=0, total_steps=100)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                      embed_dim=cfg.d_model)
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, tcfg, torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    print(f"   (3) {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, non-causal, remat {cfg.remat!r}, {n_params} "
+          f"parameters in {cfg.dtype} (AdamW: float32 master, mu, nu), "
+          f"state {torch.cuda.memory_allocated() / 1e9:.3f} GB; batch "
+          f"{B} x {S} frames of make_batch embeddings")
+    batch0 = TS.to_device(make_batch(dcfg, 0), dev)
+    plain_cfg = dataclasses.replace(cfg, kernel_impl="plain")
+    zero()
+    grads, m = TS.compute_grads(state.params, batch0, plain_cfg, tcfg)
+    plain_loss, plain_gnorm = float(m["loss"]), float(global_norm(grads))
+    if read()["K5"]:
+        raise AssertionError("the plain step launched K5")
+    del grads, m
+    step = TS.make_train_step(cfg, tcfg)
+    walls, per_step = [], []
+    for i in range(HUBERT_STEPS):
+        batch = make_batch(dcfg, i)
+        torch.cuda.synchronize()
+        zero()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        walls.append(time.perf_counter() - t)
+        got = read()
+        per_step.append(got)
+        gnorm = float(m["grad_norm"])
+        print(f"     step {i}: loss {loss:.6f}, total {float(m['total_loss']):.6f}"
+              f", grad norm {gnorm:.6f}, lr {float(m['lr']):.3e}, wall "
+              f"{walls[-1] * 1e3:.3f} ms, launches {got}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"{cfg.name}: step {i} loss {loss}, grad "
+                                 f"norm {gnorm}")
+        if i == 0:
+            first = (loss, gnorm)
+    # the forward and the remat recompute of every layer, nothing else
+    want = dict.fromkeys(counters, 0) | {"K5": 2 * cfg.num_layers}
+    if any(p != want for p in per_step):
+        raise AssertionError(f"{cfg.name}: launches a step {per_step}, "
+                             f"expected {want}")
+    dl = abs(first[0] - plain_loss) / abs(plain_loss)
+    dg = abs(first[1] - plain_gnorm) / plain_gnorm
+    print(f"     step 0 on K5's plain version: loss {plain_loss:.6f}, grad "
+          f"norm {plain_gnorm:.6f}; K5's step is {dl:.3e} (loss) and "
+          f"{dg:.3e} (grad norm) from it, relative (tolerances "
+          f"{TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL})")
+    if dl > TRAIN_LOSS_RTOL or dg > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"{cfg.name}: the first step on K5 is not the "
+                             f"plain version's")
+    wall = float(np.median(walls[1:]))
+    tokens = B * S
+    flops = 6 * n_params * tokens
+    print(f"     a step (median of steps 1..{HUBERT_STEPS - 1}): "
+          f"{wall * 1e3:.3f} ms, {tokens / wall:.1f} tokens/s; "
+          f"{want['K5']} K5 launches a step; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; 6 N tokens = "
+          f"{flops / 1e12:.3f} TFLOP a step (N = {n_params}, attention and "
+          f"the remat recompute not counted) at {flops / wall / 1e12:.3f} "
+          f"TFLOP/s: {flops / wall / peak_bf16:.4f} of the bf16 dense peak "
+          f"({peak_bf16 / 1e12:.1f} TFLOP/s: SMs x "
+          f"{BF16_FLOP_PER_SM_CLOCK} x the max SM clock; NVIDIA's H100 SXM "
+          f"data sheet gives 989 TFLOP/s at 700 W) ({card})")
+    hubert_launches = per_step[0]
+    batch = make_batch(dcfg, HUBERT_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t
+    kern = device_kernels(prof)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    k5 = sum(e.time_range.elapsed_us() for e in kern
+             if "flash_attention" in e.name) / 1e3
+    print(f"     one step profiled: {len(kern)} CUDA kernels, {busy:.3f} ms "
+          f"of kernel time in {wall * 1e3:.3f} ms of wall (the device idle "
+          f"{max(0.0, 1 - busy / (wall * 1e3)):.1%}); K5 {k5:.3f} ms "
+          f"({k5 / busy:.1%}); the kernels that take most of it:")
+    for line in top_kernels(kern, 10):
+        print("       " + line)
+    del state, step, batch0
+    release()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (4) qwen2-vl-2b, whole
+    t1 = time.perf_counter()
+    cfg = get_config("qwen2-vl-2b")
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    emb = torch.randn(1, QWEN_VL_FRAMES, cfg.d_model,
+                      generator=torch.Generator(dev).manual_seed(1),
+                      device=dev)
+    zero()
+    lg_k, _ = lm.forward(params, cfg, embeds=emb)
+    if read()["K5"] != cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: {read()} launches, not one K5 a "
+                             f"layer")
+    lg_p, _ = lm.forward(params, dataclasses.replace(
+        cfg, kernel_impl="plain"), embeds=emb)
+    lg_k, lg_p = lg_k.float(), lg_p.float()
+    rel = ((lg_k - lg_p).norm() / lg_p.norm()).item()
+    print(f"   (4) {cfg.name}: {cfg.num_layers} layers, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} kv (GQA 6), D "
+          f"{cfg.head_dim}, one forward on {QWEN_VL_FRAMES} embeddings: "
+          f"logits {tuple(lg_k.shape)}, on K5 against its plain version "
+          f"relative L2 {rel:.3e} (tolerance {LOGITS_BF16_RTOL})")
+    if lg_k.shape != (1, QWEN_VL_FRAMES, cfg.vocab_size) or not bool(
+            lg_k.isfinite().all()) or rel > LOGITS_BF16_RTOL:
+        raise AssertionError(f"{cfg.name}: logits on embeddings are wrong")
+    del params, lg_k, lg_p, emb
+    release()
+    dense_model(cfg, dev, DENSE_REQS, rates=False, logits_len=1000)
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (5) the Trainer: a failure injected, a restart, a bit-exact resume
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(get_config("hubert-xlarge"),
+                              num_layers=TRAINER_LAYERS)
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(d):
+        return Trainer(cut, TS.TrainConfig(warmup_steps=1, total_steps=10),
+                       DataConfig(vocab_size=cut.vocab_size, seq_len=S,
+                                  global_batch=B, embed_dim=cut.d_model),
+                       LoopConfig(num_steps=4, ckpt_dir=str(d), ckpt_every=2,
+                                  log_every=0), device=dev)
+
+    ref = trainer(root / "a")
+    ref.run(0)
+    crashed = trainer(root / "b")
+    try:
+        crashed.run(0, fail_at=3)
+        raise AssertionError("the injected failure did not raise")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    saved = ckpt.latest_step(str(root / "b"))
+    resumed = trainer(root / "b")
+    resumed.run(0)
+    ref_losses = {m["step"]: m["loss"] for m in ref.metrics_log}
+    got = {m["step"]: m["loss"] for m in resumed.metrics_log}
+    size = sum(f.stat().st_size for f in (root / "a" / "step_4").iterdir())
+    print(f"   (5) Trainer on {cut.name} cut to {cut.num_layers} layers, "
+          f"{B} x {S}: uninterrupted losses {ref_losses}; a run failed at "
+          f"step 3 after its save of step {saved}, restarted: losses {got}; "
+          f"a checkpoint {size / 1e9:.3f} GB; step times "
+          f"{[round(m['time_s'] * 1e3, 3) for m in ref.metrics_log]} ms")
+    if saved != 2 or min(got) != 2 or any(
+            got[k] != ref_losses[k] for k in got):
+        raise AssertionError("the resumed run is not bit-exact with the "
+                             "uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    del ref, crashed, resumed
+    release()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (6) a Mamba-2 train step, K6 under autograd
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(get_config("mamba2-2.7b"),
+                              num_layers=MAMBA_TRAIN_LAYERS)
+    Bm_, Sm = MAMBA_BATCH
+    tcfg = TS.TrainConfig(warmup_steps=0, total_steps=10)
+    state = TS.init_state(cut, tcfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = TS.to_device(make_batch(DataConfig(
+        vocab_size=cut.vocab_size, seq_len=Sm, global_batch=Bm_), 0), dev)
+    zero()
+    grads, m = TS.compute_grads(state.params, batch, cut, tcfg)
+    k6 = read()
+    ssd_grads = {k: float(v.float().abs().sum())
+                 for k, v in tree.flatten(grads["blocks_scanned"]["ssd"])}
+    gnorm = float(global_norm(grads))
+    del grads
+    pg, pm = TS.compute_grads(state.params, batch, dataclasses.replace(
+        cut, kernel_impl="plain"), tcfg)
+    pnorm = float(global_norm(pg))
+    del pg
+    zero()
+    state, sm = TS.make_train_step(cut, tcfg)(state, batch)
+    mamba_launches = read()
+    print(f"   (6) {cut.name} cut to {cut.num_layers} layers, {Bm_} x {Sm} "
+          f"tokens: loss {float(m['loss']):.6f} on K6, "
+          f"{float(pm['loss']):.6f} on its plain version; grad norm "
+          f"{gnorm:.6f} / {pnorm:.6f}; launches for the gradients {k6}, a "
+          f"train step {mamba_launches}; |grad| summed over the SSD block's "
+          f"parameters {ssd_grads}; the step's loss {float(sm['loss']):.6f}")
+    if k6["K6"] != 2 * cut.num_layers or mamba_launches != k6 or not all(
+            v > 0 for v in ssd_grads.values()) or abs(
+            float(m["loss"]) - float(pm["loss"])) > TRAIN_LOSS_RTOL * abs(
+            float(pm["loss"])) or abs(gnorm - pnorm) > TRAIN_GNORM_RTOL * \
+            pnorm or not np.isfinite(float(sm["loss"])):
+        raise AssertionError(f"{cut.name}: the train step on K6 is wrong")
+    del state, batch
+    release()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {TRAIN_BUDGET_S} s budget "
+          f"({card})")
+    if took > TRAIN_BUDGET_S:
+        raise AssertionError(f"phase 14 took {took:.3f} s, over its "
+                             f"{TRAIN_BUDGET_S} s budget")
+    for fn in counters.values():
+        fn.launches = 0
+    shape = ATTN_D80[0]
+    return {"launches": {k: hubert_launches[k] + mamba_launches[k]
+                         for k in counters},
+            "shapes": [{"shape": dict(zip(
+                ("B", "Sq", "Skv", "Hq", "Hkv", "D", "causal", "window",
+                 "q_offset"), shape)), "model": "hubert-xlarge",
+                "launches": hubert_launches["K5"], "ms": t80.device,
+                "plain_ms": p80.device, "bound_ms": b80 * 1e3,
+                "bound_by": by80, "library_ms": l80.device}]}
 
 
 if __name__ == "__main__":

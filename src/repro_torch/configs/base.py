@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.configs.base`` (the port imports nothing of the
 reference package); ``tests/test_torch_ssm.py`` holds it equal to the
-original field by field.  The registry lists only the configurations the
-port can build.
+original field by field.  The registry lists the reference's ten
+configurations.
 """
 from __future__ import annotations
 

@@ -12,6 +12,8 @@
   every exchanged tensor through host buffers; ``RankComm.grid`` gives
   its communicators over the axes of a ``(data, model)`` grid
   (``GridComm``)
+- compression: int8 error-feedback gradient compression on one device
+  (``ef_compress``), which AdamW's ``compression="int8_ef"`` runs
 """
 from .collectives import (MODES, CommPlan, TokenA2APlan, dependency_reach,
                           directional_reach, dispatch_capacity, plan_comm)

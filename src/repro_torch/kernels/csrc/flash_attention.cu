@@ -50,7 +50,7 @@
 //     rows are zero and never stored, padded keys are masked and their k
 //     and v rows zero, so any Sq and Skv run (the Pallas kernel needs
 //     multiples of its blocks).
-// D must be 32, 64, 128 or 256.
+// D must be 32, 64, 80, 128 or 256 (80: HuBERT X-Large's heads).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -69,15 +69,22 @@ __device__ __forceinline__ float part(const float4& v, int i) {
 }
 
 // kVec contiguous output columns a thread per group, kGroups groups: the
-// 16 threads of a row cover D columns
+// 16 threads of a row cover D columns, exactly (D = 80: five groups of one
+// column, as 80 is no multiple of 16 x 2 or 16 x 4)
 template <int D>
 struct Cols {
-  static constexpr int kVec = D >= 64 ? 4 : D / 16;
+  static constexpr int kVec = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   static constexpr int kGroups = D / (16 * kVec);
+  static_assert(16 * kVec * kGroups == D,
+                "the output columns of a row must cover D exactly");
 };
 
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float* out);
+template <>
+__device__ __forceinline__ void load_vec<1>(const float* p, float* out) {
+  out[0] = *p;
+}
 template <>
 __device__ __forceinline__ void load_vec<4>(const float* p, float* out) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -120,6 +127,7 @@ __global__ void __launch_bounds__(kThreads)
                            int Sq, int Skv, int Hq, int Hkv, float scale,
                            int causal, int has_window, int window,
                            int q_offset) {
+  static_assert(D % 4 == 0, "q, k and v rows are staged a float4 at a time");
   constexpr int kVec = Cols<D>::kVec;
   constexpr int kGroups = Cols<D>::kGroups;
   extern __shared__ __align__(16) float smem[];
@@ -331,7 +339,7 @@ extern "C" int flash_attention_bf16_smem_bytes(int D) {
 }
 
 // q, o: (batch, Sq, Hq, D); k, v: (batch, Skv, Hkv, D); all contiguous
-// float32.  D in {32, 64, 128, 256}, Hq a multiple of Hkv.  The window
+// float32.  D in {32, 64, 80, 128, 256}, Hq a multiple of Hkv.  The window
 // applies when has_window.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           const void* v, void* o, int batch,
@@ -350,6 +358,9 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                         has_window, window, q_offset, s);
     case 64:
       return launch<64>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
+                        has_window, window, q_offset, s);
+    case 80:
+      return launch<80>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
                         has_window, window, q_offset, s);
     case 128:
       return launch<128>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale, causal,
@@ -381,6 +392,9 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                               causal, has_window, window, q_offset, s);
     case 64:
       return sm90::launch<64>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
+                              causal, has_window, window, q_offset, s);
+    case 80:
+      return sm90::launch<80>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,
                               causal, has_window, window, q_offset, s);
     case 128:
       return sm90::launch<128>(q, k, v, o, batch, Sq, Skv, Hq, Hkv, scale,

@@ -50,9 +50,19 @@
 //     past Skv are masked element by element.
 //   - Causal CTAs are issued heaviest first (last q blocks first), so the
 //     tail of the grid is short.
-// Shared memory: q 128 D, kStages x (k, v) 64 D bf16: 192 KB at D=256 with
-// 2 stages; 4 stages below.  Registers, a consumer thread at D=256: 128 of
-// accumulator, 32 of scores, 32 of P's two parts.
+//   - D = 80 (HuBERT X-Large's heads), no multiple of the 64-column box:
+//     the tiles are two boxes wide, 128 columns, the second box over
+//     columns 64..127 of a tensor map whose inner dimension is 80, so TMA
+//     zero-fills columns 80..127.  S = Q K^T steps over the 80 columns
+//     only (five k16 steps, exact); O += P V runs both 64-column chunks as
+//     at D = 128 and stores 80 columns.  Of the products issued a tile,
+//     64 x 64 x (80 + 2 x 128), the function needs 64 x 64 x 3 x 80: 1.4x
+//     (the P V products alone: 1.6x).  A 16-column tail box with a 32-byte
+//     swizzle would issue the exact shape.
+// Shared memory: q 128 C, kStages x (k, v) 64 C bf16, C = D padded to whole
+// boxes: 192 KB at D=256 with 2 stages; 4 stages below.  Registers, a
+// consumer thread at D=256: 128 of accumulator, 32 of scores, 32 of P's two
+// parts.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,12 +84,18 @@ constexpr float kNegInf = -1e30f;
 template <int D>
 struct Tiles {
   static constexpr int kBox = D < 64 ? D : 64;  // columns a TMA box
-  static constexpr int kBoxes = D / kBox;
+  static constexpr int kBoxes = (D + kBox - 1) / kBox;
+  static constexpr int kCols = kBoxes * kBox;  // D padded to whole boxes
+  static_assert(kCols >= D && kCols - kBox < D,
+                "the boxes of a row must cover D, none of them wholly past it");
+  static_assert(D % 16 == 0,
+                "S = Q K^T steps over D in k16 steps and o is stored in "
+                "8-column groups: both must cover D exactly");
   static constexpr int kRowBytes = 2 * kBox;  // 128 or 64: the swizzle span
   static constexpr int kBoxBytes = 64 * kRowBytes;  // a box: 64 rows
   static constexpr int kStages = D == 256 ? 2 : 4;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;  // one k or v tile
+  static constexpr int kQBytes = kBQ * kCols * 2;
+  static constexpr int kTileBytes = kBK * kCols * 2;  // one k or v tile
   // tiles, then the barriers (q, kStages full, kStages empty), plus 1024
   // bytes to align the base for the 128-byte swizzle
   static constexpr int kSmem =
@@ -204,9 +220,11 @@ __device__ __forceinline__ void consume(const Block& blk, int w,
   if (has_window) wlo = max(wlo, q_offset + r0 - window + 1);
   if (r1 <= r0) whi = INT_MIN;  // no row of this warpgroup is in Sq
 
-  float acc[D / 2];  // 64 x D over the warpgroup: columns 8g + 2 (lane % 4)
+  // 64 x kCols over the warpgroup: columns 8g + 2 (lane % 4); columns past
+  // D (D = 80) stay 0 and are not stored
+  float acc[T::kCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < T::kCols / 2; ++i) acc[i] = 0.f;
   // m is kept in log2 units: exp(x - m) = exp2(x log2(e) - m log2(e))
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
@@ -312,7 +330,7 @@ __device__ __forceinline__ void consume(const Block& blk, int w,
         }
       }
 #pragma unroll
-      for (int g = 0; g < D / 8; ++g) {
+      for (int g = 0; g < T::kCols / 8; ++g) {
         acc[4 * g] *= alpha_a;
         acc[4 * g + 1] *= alpha_a;
         acc[4 * g + 2] *= alpha_b;
@@ -321,7 +339,7 @@ __device__ __forceinline__ void consume(const Block& blk, int w,
 
       // O += P_hi V + P_lo V, a 64-column chunk (one V box) at a time
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) fence_reg(acc[i]);
+      for (int i = 0; i < T::kCols / 2; ++i) fence_reg(acc[i]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -350,7 +368,7 @@ __device__ __forceinline__ void consume(const Block& blk, int w,
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) fence_reg(acc[i]);
+      for (int i = 0; i < T::kCols / 2; ++i) fence_reg(acc[i]);
     }
     // release the stage: every consumer warp is past its wgmma reads
     __syncwarp();
@@ -453,7 +471,8 @@ inline EncodeTiled encoder() {
 }
 
 // a (B, S, H, D) contiguous bf16 tensor as a 4-D map over (D, H, S, B),
-// boxes of 64 rows x min(D, 64) columns, zero fill out of bounds
+// boxes of 64 rows x min(D, 64) columns, zero fill out of bounds (rows past
+// S, and at D = 80 columns 80..127 of the second box)
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int H, int S, int batch) {
   using T = Tiles<D>;
@@ -506,6 +525,7 @@ inline int smem_bytes(int D) {
   switch (D) {
     case 32: return Tiles<32>::kSmem;
     case 64: return Tiles<64>::kSmem;
+    case 80: return Tiles<80>::kSmem;
     case 128: return Tiles<128>::kSmem;
     case 256: return Tiles<256>::kSmem;
     default: return -1;

@@ -23,6 +23,17 @@ after a transpose); the kernels read it as it is, so nothing is copied.
 Any Sq and Skv: the kernels mask their ragged edges.  ``block_q`` and
 ``block_k`` are the Pallas kernel's tile sizes; the result does not depend
 on them (the CUDA kernels' tiles are 64 or 128 query rows by 64 keys).
+Head sizes: ``HEAD_DIMS``; D = 80 (HuBERT X-Large) pads the tensor-core
+kernel's tiles to 128 columns, which its header accounts for.
+
+Gradients: K5 is a forward kernel, as the Pallas kernel is (the reference
+has no backward kernel: its train step differentiates ``ops.attention``
+through the jnp path).  On a CUDA tensor that needs a gradient the wrapper
+runs as an autograd function: its forward launches K5, its backward
+recomputes the forward through ``flash_attention_plain`` and takes that
+graph's gradients (a hand-written backward kernel would be a feature the
+reference lacks).  When no gradient is needed the call is the direct
+launch, so serving and its captured CUDA graphs are as before.
 """
 from __future__ import annotations
 
@@ -32,9 +43,10 @@ import numpy as np
 import torch
 
 from . import _build
+from ._grad import plain_grads
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)  # the head sizes K5 is built for
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the head sizes K5 is built for
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 _TYPES = (torch.float32, torch.bfloat16)
 _POS_LIMIT = 1 << 30  # positions, offsets and windows the kernel takes
@@ -129,7 +141,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run the plain version; CUDA tensors launch K5 on the current
     stream (counted in ``flash_attention.launches``): the tensor-core
-    kernel for bf16, the float32 kernel for float32.
+    kernel for bf16, the float32 kernel for float32.  On a CUDA tensor that
+    needs a gradient, the launch is the forward of an autograd function
+    whose backward goes through the plain version (the module's docstring).
     """
     _check(q, k, v, window, q_offset, block_q, block_k)
     if q.device.type == "cpu":
@@ -137,6 +151,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      block_q, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    args = (causal, window, q_offset, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, *args)
+    return _launch(q, k, v, *args)
+
+
+flash_attention.launches = 0
+
+
+def _launch(q, k, v, causal, window, q_offset, scale) -> torch.Tensor:
+    """K5 on the current stream, counted."""
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
     B, Sq, Hq, D = q.shape
@@ -171,4 +196,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention.launches = 0
+class _FlashAttention(torch.autograd.Function):
+    """K5 forward, backward by recomputing the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, q_offset, scale)
+        return _launch(q, k, v, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = plain_grads(
+            lambda q, k, v: flash_attention_plain(q, k, v, *ctx.args),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (grad,))
+        return grads + (None,) * len(ctx.args)

@@ -13,6 +13,16 @@ Shapes as in the reference: x (B, S, H, P), dt (B, S, H), A (H,), B and C
 ``chunk`` at most 128, and on the card P and N multiples of 4.  Returns
 y (B, S, H, P) in x's type and the final state (B, H, P, N) in float32,
 from a zero initial state.
+
+Gradients: K6 is a forward kernel, as the Pallas kernel is (the reference
+has no backward kernel: its train step differentiates ``ops.ssd`` through
+the jnp path).  On a CUDA tensor that needs a gradient the wrapper runs as
+an autograd function: its forward launches K6, its backward recomputes
+the chunk loop through ``ssd_chunked_plain`` and takes that graph's
+gradients for x, dt, A, B and C (a hand-written backward kernel would be a
+feature the reference lacks); D is added outside it.  When no gradient is
+needed the call is the direct launch, so serving and its captured CUDA
+graphs are as before.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._grad import plain_grads
 
 MAX_CHUNK = 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
@@ -51,7 +62,9 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
     y = torch.empty_like(x)
     idx = torch.arange(chunk, device=x.device)
     tri = (idx[:, None] >= idx[None, :])[None, :, :, None]  # (1, Qi, Qj, 1)
-    zero = torch.zeros((), device=x.device)
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow, and exp's gradient there (0 x inf) would be NaN
+    never = torch.full((), float("-inf"), device=x.device)
     for s0 in range(0, S, chunk):
         sl = slice(s0, s0 + chunk)
         xc = x[:, sl].float()                                   # (B, Q, H, P)
@@ -60,7 +73,7 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
         cc = torch.repeat_interleave(Cm[:, sl].float(), rep, dim=2)
         cum = torch.cumsum(dtc * Af, dim=1)                     # (B, Q, H)
         seg = cum[:, :, None, :] - cum[:, None, :, :]           # (B, Qi, Qj, H)
-        decay = torch.where(tri, torch.exp(seg), zero)
+        decay = torch.exp(torch.where(tri, seg, never))
         cb = torch.einsum("bihn,bjhn->bijh", cc, bc)
         yc = torch.einsum("bijh,bjhp->bihp", cb * decay, xc * dtc[..., None])
         c_in = cc * torch.exp(cum)[..., None]
@@ -123,13 +136,28 @@ def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
 
     CPU tensors run the plain version; CUDA tensors launch K6 on the current
     stream (counted in ``ssd_chunked.launches``, once a call, whichever
-    kernel runs), then add D outside it.
+    kernel runs), then add D outside it.  On a CUDA tensor that needs a
+    gradient, the launch is the forward of an autograd function whose
+    backward goes through the plain version (the module's docstring).
     """
     chunk = _check(x, dt, A, Bm, Cm, D, chunk)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
+    ins = (x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        y, state = _SSDChunked.apply(*ins, chunk)
+    else:
+        y, state = _launch(*ins, chunk)
+    return _with_skip(y, x, D), state
+
+
+ssd_chunked.launches = 0
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on the current stream, counted: (y without D, final state)."""
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
         raise ValueError("x, dt, A, B and C must be contiguous")
     Bsz, S, H, P = x.shape
@@ -171,7 +199,21 @@ def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
             int(Bm.dtype == torch.bfloat16), x.device.index, stream)
     _build.check(err, "ssd_chunked")
     ssd_chunked.launches += 1
-    return _with_skip(y, x, D), state
+    return y, state
 
 
-ssd_chunked.launches = 0
+class _SSDChunked(torch.autograd.Function):
+    """K6 forward (without D), backward by recomputing the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        grads = plain_grads(
+            lambda *t: ssd_chunked_plain(*t, None, ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], (gy, gstate))
+        return grads + (None,)

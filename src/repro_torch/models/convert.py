@@ -8,6 +8,12 @@ packages compute the same function in the tests.  It imports no JAX: it
 walks the numpy tree by key and index, against the keys, shapes and dtypes
 ``model.init_model`` makes (the RG-LRU block's float32 ``lam``, ``b_a``
 and ``b_i`` among them).
+
+``train_state_from_jax`` carries a reference ``TrainState`` across the same
+way (its leaves as numpy arrays, ``jax.tree.map(np.asarray, state)``, which
+keeps the dataclasses): step, params, and the AdamW state's step, mu, nu,
+master weights and error-feedback residual, each against the dtypes the
+port's ``train_step.init_state`` makes for the same configs.
 """
 from __future__ import annotations
 
@@ -58,3 +64,34 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
     device = resolve_device(device)
     like = init_model(cfg, 0, device="meta")
     return _carry(tree, like, "", device)
+
+
+def _carry_tree(src, like, path: str, device: torch.device):
+    if like is None:
+        if src is not None:
+            raise ValueError(f"{path}: the port expects None")
+        return None
+    return _carry(src, like, path, device)
+
+
+def train_state_from_jax(state, cfg, tcfg, device=None):
+    """The port's ``TrainState`` for ``cfg`` and ``tcfg`` from the
+    reference's (numpy leaves), on ``device`` (``cuda`` unless the caller
+    asks for the CPU)."""
+    from ..train.train_step import TrainState, init_state
+
+    check_supported(cfg)
+    device = resolve_device(device)
+    like = init_state(cfg, tcfg, 0, device="meta")
+    opt = state.opt
+    return TrainState(
+        step=_tensor(state.step, device),
+        params=_carry(state.params, like.params, "params", device),
+        opt=type(like.opt)(
+            step=_tensor(opt.step, device),
+            mu=_carry(opt.mu, like.opt.mu, "opt.mu", device),
+            nu=_carry(opt.nu, like.opt.nu, "opt.nu", device),
+            master=_carry_tree(opt.master, like.opt.master, "opt.master",
+                               device),
+            ef_residual=_carry_tree(opt.ef_residual, like.opt.ef_residual,
+                                    "opt.ef_residual", device)))

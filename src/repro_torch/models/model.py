@@ -8,9 +8,15 @@ Block kinds (cycled through ``cfg.block_pattern``):
                dense MLP in parallel (``cfg.dense_residual_ff``)
   ssd        - Mamba-2 mixer block (no MLP)
   rglru      - Griffin recurrent block + MLP
-A config with a modality frontend raises ``NotImplementedError`` naming
-the slice that brings it.  ``forward`` runs the MoE dense path and
-returns no aux losses (the training slice sums them over layers).
+A config with a modality frontend (Qwen2-VL's vision, HuBERT's audio)
+takes its inputs as embeddings (``forward(..., embeds=)``).  ``forward``
+runs the MoE dense path; with ``return_aux`` it also returns the MoE aux
+losses summed over the layers, which the train step adds to its loss.
+``cfg.remat`` checkpoints each block of a cacheless forward that records
+gradients, as the reference's ``jax.checkpoint`` does: ``"full"`` keeps
+only the residual stream between blocks, ``"selective"`` also keeps the
+outputs of the unbatched matmuls (``aten.mm``/``addmm``), the reference's
+``dots_with_no_batch_dims_saveable``.
 
 Parameters are a nested dict of tensors with the reference's keys:
 ``embed``, ``final_norm``, ``head`` when the embeddings are not tied, and
@@ -21,10 +27,13 @@ loops over layers in Python in both layouts.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from .. import tree as T
 from ..backends.base import resolve_device
 from . import layers as L
 from .cache import LayerCache, unstack_caches
@@ -33,6 +42,8 @@ from .rglru import apply_rglru_block, init_rglru_block
 from .ssm import apply_ssd_block, init_ssd_block
 
 KINDS = ("attn", "local_attn", "moe", "ssd", "rglru")
+REMATS = ("none", "full", "selective")
+_SAVED_BY_SELECTIVE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_supported(cfg) -> None:
@@ -40,10 +51,9 @@ def check_supported(cfg) -> None:
         if kind not in KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend (inputs as "
-            f"embeddings) comes with the VLM and audio slice")
+    if cfg.remat not in REMATS:
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}; known: "
+                         f"{REMATS}")
 
 
 def scanned(cfg) -> bool:
@@ -141,7 +151,14 @@ def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x', new cache tensors of a recurrent block or None).  An
     attention block updates its cache in place itself."""
-    new = None
+    return _block(p, kind, x, cfg, positions, cache)[:2]
+
+
+def _block(p: Dict, kind: str, x: torch.Tensor, cfg, positions: torch.Tensor,
+           cache: Optional[LayerCache] = None):
+    """``apply_block`` and the MoE block's aux losses: (x', new, (lb, z)),
+    the losses None for any other block."""
+    new, aux = None, None
     if kind in ("attn", "local_attn", "moe"):
         window = cfg.local_window if kind == "local_attn" else cfg.window
         h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
@@ -149,7 +166,8 @@ def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
                                   cache=cache, kernel_impl=cfg.kernel_impl)
         h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
         if kind == "moe":
-            m, _ = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl)
+            m, metrics = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl)
+            aux = (metrics["moe_lb_loss"], metrics["moe_z_loss"])
             if "mlp" in p:  # Arctic: a dense MLP in parallel
                 m = m + L.apply_mlp(p["mlp"], h, cfg)
             x = x + m
@@ -166,7 +184,29 @@ def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
         x = x + L.apply_mlp(p["mlp"], h, cfg)
     else:
         raise ValueError(kind)
-    return x, new
+    return x, new, aux
+
+
+def _selective_contexts():
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_SELECTIVE
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
+def _remat_block(p: Dict, kind: str, x: torch.Tensor, cfg,
+                 positions: torch.Tensor):
+    """``_block`` without a cache under ``cfg.remat``: the block's
+    activations are recomputed in the backward pass (all of them, or all
+    but the unbatched matmuls' outputs)."""
+    fn = functools.partial(_block, kind=kind, cfg=cfg, positions=positions)
+    if cfg.remat == "none":
+        return fn(p, x=x)
+    extra = ({} if cfg.remat == "full"
+             else {"context_fn": _selective_contexts})
+    return ckpt.checkpoint(lambda pp, xx: fn(pp, x=xx), p, x,
+                           use_reentrant=False, **extra)
 
 
 def _write(cache: LayerCache, new: Dict, scan: bool = True) -> None:
@@ -188,37 +228,59 @@ def _write(cache: LayerCache, new: Dict, scan: bool = True) -> None:
             dst.copy_(src)
 
 
-def forward(params: Dict, cfg, tokens: torch.Tensor,
+def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             caches: Optional[Union[LayerCache, List[LayerCache]]] = None,
-            pos=0, last_token_only: bool = False
-            ) -> Tuple[torch.Tensor, Optional[Union[LayerCache,
-                                                    List[LayerCache]]]]:
-    """(B, S) tokens -> ((B, S or 1, vocab) logits, caches).
+            pos=0, last_token_only: bool = False, return_aux: bool = False):
+    """(B, S) tokens, or (B, S, d) ``embeds`` (a modality frontend's stub
+    inputs, cast to the model's dtype in place of the embedding lookup) ->
+    ((B, S or 1, vocab) logits, caches), and with ``return_aux`` a third
+    item: {"moe_lb_loss", "moe_z_loss"}, float32 sums over the layers.
 
     ``caches`` (a per-layer list, or a stacked cache for a scanned stack)
     is updated in place and returned.  ``pos`` is the absolute position of
     the first token, an int, a 0-d tensor or (B,) per-slot depths; it sets
-    the RoPE positions (attention caches keep their own cursors).
+    the RoPE positions (attention caches keep their own cursors).  A
+    cacheless forward that records gradients checkpoints each block under
+    ``cfg.remat``.
     """
     check_supported(cfg)
-    B, S = tokens.shape
-    h = L.apply_embedding(params["embed"], tokens)
-    steps = torch.arange(S, device=tokens.device)
+    if (tokens is None) == (embeds is None):
+        raise ValueError("give tokens or embeds, one of them")
+    if embeds is not None:
+        h = embeds.to(L.dtype_of(cfg))
+        B, S = embeds.shape[:2]
+    else:
+        h = L.apply_embedding(params["embed"], tokens)
+        B, S = tokens.shape
+    steps = torch.arange(S, device=h.device)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        positions = pos.to(tokens.device)[:, None] + steps[None, :]
+        positions = pos.to(h.device)[:, None] + steps[None, :]
     else:
         positions = (steps + pos)[None, :].expand(B, S)
     per_layer = (unstack_caches(caches, cfg.num_layers)
                  if isinstance(caches, LayerCache) else caches)
+    remat = caches is None and torch.is_grad_enabled() and (
+        h.requires_grad or any(t.requires_grad for t in T.leaves(params)))
     scan = scanned(cfg)
     pattern = cfg.pattern_for_depth()
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, bp in enumerate(layer_params(params, cfg)):
-        cache_i = per_layer[i] if per_layer is not None else None
-        h, new = apply_block(bp, pattern[i], h, cfg, positions, cache_i)
-        if new is not None:
-            _write(cache_i, new, scan)
+        if remat:
+            h, new, aux = _remat_block(bp, pattern[i], h, cfg, positions)
+        else:
+            cache_i = per_layer[i] if per_layer is not None else None
+            h, new, aux = _block(bp, pattern[i], h, cfg, positions, cache_i)
+            if new is not None:
+                _write(cache_i, new, scan)
+        if aux is not None:
+            lb, zl = lb + aux[0], zl + aux[1]
     if last_token_only:
         h = h[:, -1:, :]
     h = L.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return L.apply_unembed(head, h), caches
+    logits = L.apply_unembed(head, h)
+    if return_aux:
+        return logits, caches, {"moe_lb_loss": lb, "moe_z_loss": zl}
+    return logits, caches

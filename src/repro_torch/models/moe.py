@@ -117,9 +117,16 @@ def _form_losses(pieces, E: int, k: int):
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(E, M, K) @ (E, K, N) -> float32 (E, M, N): float32 accumulation,
-    the products never rounded to the operands' type."""
+    the products never rounded to the operands' type.  Differentiable:
+    bf16 operands that need a gradient go through ``_BmmF32``."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _BmmF32.apply(a, b)
+    return _bmm_f32_forward(a, b)
+
+
+def _bmm_f32_forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cpu":
         return torch.bmm(a, b, out_dtype=torch.float32)
     # the CPU build has no aten::bmm.dtype: one expert at a time
@@ -128,6 +135,28 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for e in range(a.shape[0]):
         torch.mm(a[e].float(), b[e].float(), out=out[e])
     return out
+
+
+class _BmmF32(torch.autograd.Function):
+    """``_bmm_f32`` with the gradient of JAX's ``preferred_element_type=
+    float32`` product: the float32 cotangent times the other operand
+    upcast, in float32, rounded to the operand's type (``aten::bmm.dtype``
+    has no derivative, and ``out=`` takes none)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32_forward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.transpose(1, 2).float()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.transpose(1, 2).float(), g).to(b.dtype)
+        return ga, gb
 
 
 def _ffn(blocks: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -46,6 +46,19 @@ TOL = 1e-4  # float32 against float32, sums in another order
 GEMMA, QWEN = "recurrentgemma-2b", "qwen1.5-0.5b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: its models are tiny, and the
+    suite runs several workers on the CPU at once, where each process's
+    threads spin against the others' (six concurrent runs of
+    ``tests/test_torch_trainer.py`` took over 900 s at 8 threads each, 17 s
+    at 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(got, want, tol=TOL):
     got = got.detach().float().numpy() if torch.is_tensor(got) else got
     np.testing.assert_allclose(np.asarray(got, np.float32),

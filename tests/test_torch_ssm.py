@@ -48,6 +48,19 @@ ORACLE_TOL = 1e-4   # float32 against float32, sums in another order
 MODEL = "mamba2-2.7b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: its models are tiny, and the
+    suite runs several workers on the CPU at once, where each process's
+    threads spin against the others' (six concurrent runs of
+    ``tests/test_torch_trainer.py`` took over 900 s at 8 threads each, 17 s
+    at 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def ssd_inputs(B, S, H, P, G, N, seed=0):
     r = np.random.RandomState(seed)
     x = (r.randn(B, S, H, P) * 0.5).astype(np.float32)
@@ -85,7 +98,8 @@ def spy(monkeypatch, module, name):
 # ---------------------------------------------------------------- configs
 def test_config_copy_equals_reference():
     names = ["mixtral-8x7b", "arctic-480b", MODEL, "recurrentgemma-2b",
-             "yi-6b", "qwen1.5-0.5b", "qwen2-72b", "minitron-8b"]
+             "yi-6b", "qwen1.5-0.5b", "qwen2-72b", "minitron-8b",
+             "qwen2-vl-2b", "hubert-xlarge"]
     for name in names:
         ref, port = rcfg.get_config(name), tcfg.get_config(name)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -94,10 +108,9 @@ def test_config_copy_equals_reference():
         assert port.pattern_for_depth() == ref.pattern_for_depth()
         assert port.params_dense == ref.params_dense
     assert tcfg.config_names() == sorted(names)
-    assert tcfg.ALL_ARCHS == names
-    assert names == [n for n in rcfg.ALL_ARCHS if n in names]
+    assert tcfg.ALL_ARCHS == names == rcfg.ALL_ARCHS
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("qwen2-vl-2b")
+        tcfg.get_config("qwen2-vl-7b")
 
 
 # -------------------------------------------------------------- SSD (K6)
@@ -572,8 +585,9 @@ def test_params_from_jax_rejects_a_foreign_tree(reduced_pair):
 
 def test_other_block_kinds_name_their_slice():
     """Every block kind of the reference builds (``moe`` since the MoE
-    slice, here in a heterogeneous stack with its cache); a modality
-    frontend names the slice that brings it."""
+    slice, here in a heterogeneous stack with its cache), and so does a
+    modality frontend (inputs as embeddings) since the training slice; a
+    block kind the reference lacks is refused by name."""
     cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config(MODEL)),
                               block_pattern=("attn", "moe"), num_experts=4,
                               num_experts_per_tok=2)
@@ -586,8 +600,12 @@ def test_other_block_kinds_name_their_slice():
     assert logits.shape == (1, 3, cfg.vocab_size)
     vlm = dataclasses.replace(cfg, block_pattern=("attn",),
                               frontend="vision")
-    with pytest.raises(NotImplementedError, match="VLM and audio slice"):
-        TM.init_model(vlm, 0, device="cpu")
+    logits, _ = TM.forward(TM.init_model(vlm, 0, device="cpu"), vlm,
+                           embeds=torch.zeros(1, 3, vlm.d_model))
+    assert logits.shape == (1, 3, vlm.vocab_size)
+    odd = dataclasses.replace(cfg, block_pattern=("attn", "xattn"))
+    with pytest.raises(NotImplementedError, match="'xattn' is not ported"):
+        TM.init_model(odd, 0, device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
