@@ -182,7 +182,31 @@ raise on failure:
    restarted against an uninterrupted run, bit for bit; and a Mamba-2
    train step cut to MAMBA_TRAIN_LAYERS layers, K6 twice a layer under
    autograd, every SSD parameter's gradient non-zero, against the plain
-   path.
+   path;
+15. data-parallel training and pipelines, in DP_BUDGET_S (150 s):
+   ``qwen1.5-0.5b`` whole (bf16) trained at DP_BATCH (8 x 1024 tokens)
+   through ``make_train_step`` on the whole batch in this process first
+   (then freed), then over DP_RANKS (4) rank processes sharing the card,
+   2 rows a rank, DP_STEPS steps with ``psum`` and DP_STEPS with
+   ``compressed_psum`` from seed 0 (``train.dist_step.DataParallel``):
+   every replica the controller's bits at the start and equal to the
+   others after every step (fingerprints), the losses within the
+   reference's 1e-4 / 2e-2 of the single-device step's (the last step's
+   loss reads weights an earlier step moved), each mode held to its
+   emulation in this process (each rank's gradients, the sync's formula,
+   one AdamW step) within DP_EMU_RTOL and the other mode's emulation
+   missing it, the ``psum`` update within DP_UPDATE_RTOL of the
+   single-device one, each rank's
+   split of a step (waiting for the device, staging, gloo), its staged
+   bytes equal to the analytic count, K5 twice a layer a rank step, the
+   walls a step beside the single-device step's; the ``Trainer`` with
+   ``grad_sync="compressed_psum"`` on 2 ranks, qwen1.5-0.5b cut to
+   DP_TRAINER_LAYERS layers, failed at step 3 and restarted, bit for bit;
+   ``yi-6b`` whole pipelined (``dist.pipeline.pp_forward``, 4 stages x 8
+   microbatches, 8 x 1024 tokens) against ``forward``, bit for bit, K5
+   once a layer a microbatch (256), and the gradient of
+   ``pp_loss_fn`` on a 4-layer cut reaching every stage; and
+   ``bench_model_step`` at ``--smoke`` through the runner.
 The "kernel times" phase runs the plain K3 and K4 (1.13-1.44 s a call) one
 call a window, a cut for the time phase 13 takes.  It also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -193,7 +217,9 @@ The line before the last lists the kernels with their launches on the main
 path (and the path they were counted on; ``planner_launches``: through
 ``torch-auto`` in phase 11, a rank's included; ``moe_launches``: on
 phase 13's MoE serving; ``train_launches``: a train step of phase 14, K5's
-on HuBERT, K6's on the Mamba-2 cut; K5's ``shapes``: its row at HuBERT's
+on HuBERT, K6's on the Mamba-2 cut; ``dp_launches``: a rank's step of
+phase 15's data-parallel training; ``pp_launches``: its pipelined
+``yi-6b`` forward; K5's ``shapes``: its row at HuBERT's
 D = 80), errors, times, bounds and
 (K5) the time of one library call for the same function; for K5 and K6,
 whose main paths are bf16, the bf16 kernel's (K6's summed over its three
@@ -248,7 +274,8 @@ from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
                               replicate)
 from repro_torch.dist import plan_comm  # noqa: E402
-from repro_torch.dist.ranks import close_pools  # noqa: E402
+from repro_torch.dist import pipeline as PP  # noqa: E402
+from repro_torch.dist.ranks import close_pools, get_pool  # noqa: E402
 from repro_torch.kernels import (_build, bodies,  # noqa: E402
                                  taskbench_compute, taskbench_compute_plain,
                                  taskbench_memory, taskbench_memory_plain)
@@ -263,8 +290,11 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.data import DataConfig, make_batch  # noqa: E402
 from repro_torch import tree  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
+from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.train import dist_step as DS  # noqa: E402
 from repro_torch.train.trainer import LoopConfig, Trainer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -393,6 +423,51 @@ TRAINER_LAYERS = 2  # of HuBERT's 48 for the save/restore run (~0.55 GB a
 # checkpoint at full width, not 13 GB)
 MAMBA_TRAIN_LAYERS, MAMBA_BATCH = 2, (4, 1024)  # of its 64 layers
 QWEN_VL_FRAMES = 1024  # embeddings of one forward of qwen2-vl-2b
+# phase 15: data-parallel training and pipelines, in at most DP_BUDGET_S.
+# (a) qwen1.5-0.5b whole (0.46 B parameters, bf16) over DP_RANKS rank
+# processes sharing the card.  A rank holds ~15 GB: ~7 GB of parameters
+# with AdamW's float32 master weights and moments, ~4.5 GB of gradients and
+# their float32 or int32 copies, ~3 GB of logits and their gradient; ~60 GB
+# for four.  The global batch is DP_BATCH, 2 rows a rank as in the
+# reference's DP test (tests/test_distributed.py), whose train config and
+# loss tolerances these are.  Its learning rates are 0, 5e-4 and 1e-3, so
+# DP_STEPS is 3: the last step's loss reads weights step 1 moved.  Its
+# parameter bounds (1e-5 with psum, 1e-2 with compression) are float32
+# ones, and AdamW's normalized update meets the second whatever the sync
+# does.  So the float32 master weights' update (master - master at step
+# 0) is held by its relative L2: each mode's against an emulation of the
+# ranks in this process (each rank's gradients of its rows, the sync's
+# formula, one AdamW step) within DP_EMU_RTOL (the H100 read 3.8e-8 with
+# psum, 0 compressed, and 0.77-1.19 against the other mode's emulation;
+# by estimate one element whose quantum flips reads ~3e-5), with the grad
+# norms within DP_EMU_GNORM_RTOL (AdamW's update does not see a sync that
+# scales the gradients) and the losses within DP_EMU_LOSS_TOL (the ranks'
+# float32 mean), and against the other mode's emulation, which it must
+# miss; and
+# with psum against the single-device step's within DP_UPDATE_RTOL (in
+# bf16 the ranks' 2-row gradients carry roundings the whole batch's do
+# not).  Those roundings also move a loss that reads moved weights: with
+# psum such a loss is held to the single device's within
+# DP_MOVED_LOSS_TOL, a bf16 bound (the H100 read 6.3e-4 at step 2, the
+# update 4.0e-3 from the single device's, while the ranks' losses equal
+# the emulation's bit for bit); the reference's 1e-4 holds the losses that
+# read the initial weights.
+DP_BUDGET_S = 150
+DP_RANKS, DP_BATCH, DP_STEPS = 4, (8, 1024), 3
+DP_TCFG = dict(base_lr=1e-3, warmup_steps=2, total_steps=40)
+DP_LOSS_TOL = {"psum": 1e-4, "compressed_psum": 2e-2}
+DP_UPDATE_RTOL, DP_MOVED_LOSS_TOL = 5e-2, 2e-3
+DP_EMU_RTOL, DP_EMU_GNORM_RTOL, DP_EMU_LOSS_TOL = 1e-4, 1e-5, 1e-5
+# (b) the DP Trainer on DP_TRAINER_RANKS ranks, qwen1.5-0.5b cut to
+# DP_TRAINER_LAYERS of 24 layers at full width (a 2.5 GB checkpoint)
+DP_TRAINER_RANKS, DP_TRAINER_LAYERS = 2, 2
+# (c) yi-6b whole (32 layers) pipelined, PP_STAGES x PP_MICRO, against its
+# forward on the same tokens, bit for bit: the only change is the GEMMs'
+# row count (one row a microbatch against eight), and on the H100 the
+# logits were equal in every run; the gradient on yi-6b cut to
+# PP_GRAD_LAYERS layers, PP_GRAD_STAGES x PP_GRAD_MICRO
+PP_STAGES, PP_MICRO, PP_BATCH = 4, 8, (8, 1024)
+PP_GRAD_LAYERS, PP_GRAD_STAGES, PP_GRAD_MICRO = 4, 2, 4
 
 
 class ServeCase(NamedTuple):
@@ -1280,6 +1355,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     dense_phase(dev, card)
     moe_launches = moe_phase(dev, card, counters, bound, peak_bf16, sms)
     train = train_phase(dev, card, counters, bound, peak_bf16, sms)
+    dp = dp_phase(dev, card, counters)
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -1305,6 +1381,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "planner_launches": planner_launches.get(k, 0),
              "moe_launches": moe_launches[k],
              "train_launches": train["launches"][k],
+             "dp_launches": dp["dp"][k], "pp_launches": dp["pp"][k],
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device,
@@ -2984,6 +3061,376 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
                 "launches": hubert_launches["K5"], "ms": t80.device,
                 "plain_ms": p80.device, "bound_ms": b80 * 1e3,
                 "bound_by": by80, "library_ms": l80.device}]}
+
+
+def emulate_dp(cfg, tcfg, batches, ranks: int, dev) -> dict:
+    """The data-parallel steps of ``ranks`` ranks emulated in this process
+    for both syncs, the ranks' arithmetic written out: each rank's
+    gradients of its rows (``compute_grads``), their mean as the sync
+    defines it (``psum``: a float32 sum / N in the gradient's dtype;
+    ``compressed_psum``: the shared scale max|g| over the ranks / 127,
+    round half to even, clamp to 127, an integer sum, one rescale to the
+    gradient's dtype, / N), one AdamW step, from seed 0 -> {mode: (losses,
+    grad norms, float32 master weights)}.  While both modes' parameters
+    are equal (the warm-up's lr is 0 at step 0) they share the ranks'
+    gradients."""
+    out = {}
+    for mode in ("psum", "compressed_psum"):
+        gen = torch.Generator(dev).manual_seed(0)
+        out[mode] = (TS.init_state(cfg, tcfg, gen, dev), [], [])
+    for b in batches:
+        shards, prints = None, None
+        for mode, (state, losses, gnorms) in out.items():
+            if shards is None or tree.fingerprint(state.params) != prints:
+                shards = [TS.compute_grads(state.params,
+                                           TS.to_device(rows, dev), cfg,
+                                           tcfg)
+                          for rows in DS.shard_rows(b, ranks)]
+                prints = tree.fingerprint(state.params)
+            losses.append(float(torch.stack(
+                [m["loss"].float() for _, m in shards]).sum() / ranks))
+            mean = []
+            for gs in zip(*(tree.leaves(g) for g, _ in shards)):
+                g32 = [g.float() for g in gs]
+                if mode == "compressed_psum":
+                    amax = torch.stack([g.abs().max() for g in g32]).max()
+                    scale = amax / 127.0 if float(amax) > 0 else amax + 1.0
+                    q = sum(torch.clamp(torch.round(g / scale), -127, 127)
+                            .to(torch.int64) for g in g32)
+                    mean.append((q.float() * scale).to(gs[0].dtype) / ranks)
+                else:
+                    mean.append((sum(g32) / ranks).to(gs[0].dtype))
+            del gs, g32
+            lr = warmup_cosine(state.step, tcfg.base_lr, tcfg.warmup_steps,
+                               tcfg.total_steps)
+            m = adamw.update_(tree.unflatten(state.params, mean), state.opt,
+                              state.params, tcfg.adamw, lr=lr)
+            gnorms.append(float(m["grad_norm"]))
+            state.step.add_(1)
+            del mean
+        del shards
+    return {mode: (losses, gnorms, tree.leaves(state.opt.master))
+            for mode, (state, losses, gnorms) in out.items()}
+
+
+def update_rel_l2(got, want, start, dev) -> float:
+    """``|got - want| / |want - start|`` over every leaf (float32 master
+    weights, ``start`` the parameters at step 0), a leaf at a time on the
+    card."""
+    num = den = 0.0
+    for g, w, s0 in zip(got, want, start):
+        w = w.to(dev)
+        num += float((g.to(dev) - w).square().sum(dtype=torch.float64))
+        den += float((w - s0.to(dev).float()).square().sum(
+            dtype=torch.float64))
+    return (num / den) ** 0.5
+
+
+def dp_phase(dev, card: str, counters: dict) -> dict:
+    """Data-parallel training and pipelines, in at most DP_BUDGET_S: (a)
+    ``qwen1.5-0.5b`` whole at DP_BATCH over DP_RANKS rank processes, its
+    single-device step first (the controller keeps its losses, the
+    parameters' fingerprint at step 0, the parameters and float32 master
+    weights after DP_STEPS steps, then frees it), both modes emulated in
+    this process (``emulate_dp``), then DP_STEPS steps with ``psum`` and
+    DP_STEPS with ``compressed_psum``, each from seed 0: the replicas
+    start with the controller's bits and hold equal ones after every step,
+    the losses, grad norms and updates within the bounds above, each
+    rank's split of a step (waiting for the device, staging, gloo, bytes)
+    and the bytes against the analytic count, K5's launches a rank step;
+    (b) the ``Trainer`` with ``grad_sync="compressed_psum"`` on
+    DP_TRAINER_RANKS ranks, qwen1.5-0.5b cut to DP_TRAINER_LAYERS layers: a
+    run failed at step 3 and restarted against an uninterrupted one, bit
+    for bit; (c) ``pp_forward`` of ``yi-6b`` whole against its
+    ``forward``, bit for bit, K5 once a layer a microbatch, and
+    ``pp_loss_fn``'s
+    gradient on a PP_GRAD_LAYERS-layer cut reaching every stage; (d)
+    ``bench_model_step`` at ``--smoke`` through the runner.  Returns
+    {"dp": K5's (and the others') launches a rank step, "pp": the
+    pipelined forward's}."""
+    t0 = phase(f"15. data-parallel training and pipelines (budget "
+               f"{DP_BUDGET_S} s; cuts: the DP Trainer on qwen1.5-0.5b at "
+               f"{DP_TRAINER_LAYERS} of its 24 layers, the pipelined "
+               f"gradient on yi-6b at {PP_GRAD_LAYERS} of its 32)")
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # (a) the single-device step first, then the emulations, then the ranks
+    t1 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    B, S = DP_BATCH
+    tcfg = TS.TrainConfig(**DP_TCFG)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    batches = [make_batch(dcfg, s) for s in range(DP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, tcfg, torch.Generator(dev).manual_seed(0), dev)
+    start_print = tree.fingerprint(state.params)
+    start = [t.detach().clone() for t in tree.leaves(state.params)]
+    n_params = sum(t.numel() for t in start)
+    step = TS.make_train_step(cfg, tcfg)
+    single, single_walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        single.append(float(m["loss"]))
+        single_walls.append(time.perf_counter() - t)
+    single_master = tree.leaves(state.opt.master)
+    print(f"   (a) {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters in "
+          f"{cfg.dtype} (AdamW: float32 master, mu, nu); global batch {B} x "
+          f"{S} tokens; train config {DP_TCFG}")
+    print(f"     single device, the whole batch: losses {single}, walls "
+          f"{[round(w * 1e3, 3) for w in single_walls]} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del state, step, m
+    release()
+    t2 = time.perf_counter()
+    emulated = emulate_dp(cfg, tcfg, batches, DP_RANKS, dev)
+    print(f"     emulated in this process ({time.perf_counter() - t2:.3f} "
+          f"s): " + "; ".join(f"{k}: losses {v[0]}, grad norms {v[1]}"
+                              for k, v in emulated.items()))
+    release()
+    t2 = time.perf_counter()
+    pool = get_pool(DP_RANKS, dev)  # new: earlier phases closed theirs
+    print(f"     a pool of {DP_RANKS} rank processes ready in "
+          f"{time.perf_counter() - t2:.3f} s; {B // DP_RANKS} rows a rank")
+    n_leaves, n_metrics = len(start), len(TS.METRICS)
+    lrs = [float(warmup_cosine(torch.tensor(s), tcfg.base_lr,
+                               tcfg.warmup_steps, tcfg.total_steps))
+           for s in range(DP_STEPS)]
+    moved = [any(lr > 0 for lr in lrs[:s]) for s in range(DP_STEPS)]
+    dp_launches, walls = None, {}
+    for mode in ("psum", "compressed_psum"):
+        compress = mode == "compressed_psum"
+        t2 = time.perf_counter()
+        dp = DS.DataParallel(pool, cfg, tcfg, compress=compress, seed=0)
+        if dp.fingerprint() != start_print:
+            raise AssertionError(f"{mode}: the replicas built from seed 0 "
+                                 f"are not the controller's state")
+        print(f"     {mode}: the replicas built from seed 0 in "
+              f"{time.perf_counter() - t2:.3f} s, every one the "
+              f"controller's bits")
+        losses, gnorms, walls[mode] = [], [], []
+        for s, b in enumerate(batches):
+            t = time.perf_counter()
+            m = dp.run_step(b)
+            walls[mode].append(time.perf_counter() - t)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+            dp.fingerprint()  # raises unless every replica holds its bits
+            want = 2 * 4 * (n_params + n_metrics
+                            + (n_leaves if compress else 0))
+            for r, st in enumerate(dp.stats):
+                print(f"       step {s} rank {r}: wall "
+                      f"{st['wall_s'] * 1e3:.3f} ms = waiting for the device "
+                      f"{st['sync_s'] * 1e3:.3f} + staging "
+                      f"{st['stage_s'] * 1e3:.3f} + gloo "
+                      f"{st['gloo_s'] * 1e3:.3f} ms (gloo "
+                      f"{st['gloo_s'] / st['wall_s']:.1%}) + the rest; "
+                      f"{st['ops']} ops, {st['bytes']} bytes staged "
+                      f"(analytic {want}); K5 {st['K5']}; peak "
+                      f"{st.get('peak_bytes', 0) / 1e9:.3f} GB")
+            if any(st["bytes"] != want for st in dp.stats):
+                raise AssertionError(f"{mode}: staged bytes are not the "
+                                     f"analytic count")
+            launches = {k: 0 for k in counters} | {
+                "K5": dp.stats[0]["K5"], "K6": dp.stats[0]["K6"]}
+            if any(st["K5"] != 2 * cfg.num_layers for st in dp.stats):
+                raise AssertionError(f"{mode}: K5 launches a rank step "
+                                     f"{[st['K5'] for st in dp.stats]}")
+            dp_launches = launches
+        master = tree.leaves(dp.params(master=True))
+        other = "psum" if compress else "compressed_psum"
+        e_losses, e_gnorms, e_master = emulated[mode]
+        upd = {k: update_rel_l2(master, v[2], start, dev)
+               for k, v in emulated.items()}
+        tols = [DP_MOVED_LOSS_TOL if mv and not compress
+                else DP_LOSS_TOL[mode] for mv in moved]
+        dl = [abs(a - b) for a, b in zip(losses, single)]
+        de = max(abs(a - b) for a, b in zip(losses, e_losses))
+        dg = max(abs(a - b) / b for a, b in zip(gnorms, e_gnorms))
+        line = (f"     {mode}: losses {losses} against the single device's: "
+                f"abs diffs {[f'{d:.3e}' for d in dl]} (tolerances {tols}; "
+                f"weights moved: {moved}); "
+                f"against the emulation's: losses {de:.3e} (tolerance "
+                f"{DP_EMU_LOSS_TOL}), grad norms {gnorms} relative "
+                f"{dg:.3e} (tolerance {DP_EMU_GNORM_RTOL}), the update's "
+                f"relative L2 {upd[mode]:.3e} (tolerance {DP_EMU_RTOL}), "
+                f"against {other}'s emulation {upd[other]:.3e} (must "
+                f"exceed {DP_EMU_RTOL})")
+        ok = (all(d <= t for d, t in zip(dl, tols))
+              and de <= DP_EMU_LOSS_TOL and dg <= DP_EMU_GNORM_RTOL
+              and upd[mode] <= DP_EMU_RTOL and upd[other] > DP_EMU_RTOL)
+        if not compress:
+            single_upd = update_rel_l2(master, single_master, start, dev)
+            line += (f"; the update against the single device's: relative "
+                     f"L2 {single_upd:.3e} (tolerance {DP_UPDATE_RTOL})")
+            ok = ok and single_upd <= DP_UPDATE_RTOL
+        print(line + f"; walls {[round(w * 1e3, 3) for w in walls[mode]]}"
+              f" ms")
+        if not ok:
+            raise AssertionError(f"{mode}: the data-parallel steps are not "
+                                 f"the single-device steps or their "
+                                 f"emulation")
+        del dp, master
+        gc.collect()
+    print(f"     a step (the last of {DP_STEPS}): single device "
+          f"{single_walls[-1] * 1e3:.3f} ms, psum "
+          f"{walls['psum'][-1] * 1e3:.3f} ms, compressed_psum "
+          f"{walls['compressed_psum'][-1] * 1e3:.3f} ms ({card})")
+    del start, single_master, emulated
+    close_pools()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (b) the DP Trainer: a failure injected, a restart, a bit-exact resume
+    t1 = time.perf_counter()
+    cut = dataclasses.replace(cfg, num_layers=DP_TRAINER_LAYERS)
+    root = ROOT / "build" / "dp_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    pool = get_pool(DP_TRAINER_RANKS, dev)
+    rows = 2 * DP_TRAINER_RANKS
+
+    def trainer(d, every=100):
+        return Trainer(cut, TS.TrainConfig(warmup_steps=1, total_steps=10),
+                       DataConfig(vocab_size=cut.vocab_size, seq_len=S,
+                                  global_batch=rows),
+                       LoopConfig(num_steps=4, ckpt_dir=str(d),
+                                  ckpt_every=every, log_every=0),
+                       grad_sync="compressed_psum", pool=pool)
+
+    # a save every 2 steps only in the run that fails (a checkpoint is
+    # 2.5 GB): the others save their last step only
+    ref = trainer(root / "a")
+    ref.run(0)
+    crashed = trainer(root / "b", every=2)
+    try:
+        crashed.run(0, fail_at=3)
+        raise AssertionError("the injected failure did not raise")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    saved = ckpt.latest_step(str(root / "b"))
+    resumed = trainer(root / "b")
+    last = resumed.run(0)
+    ref_losses = {m["step"]: m["loss"] for m in ref.metrics_log}
+    got = {m["step"]: m["loss"] for m in resumed.metrics_log}
+    size = sum(f.stat().st_size for f in (root / "a" / "step_4").iterdir())
+    print(f"   (b) Trainer(grad_sync='compressed_psum') on {DP_TRAINER_RANKS}"
+          f" ranks, {cut.name} cut to {cut.num_layers} layers, {rows} x {S}:"
+          f" uninterrupted losses {ref_losses}; a run failed at step 3 after "
+          f"its save of step {saved}, restarted: losses {got}; a checkpoint "
+          f"{size / 1e9:.3f} GB (written by rank 0); step times "
+          f"{[round(m['time_s'] * 1e3, 3) for m in ref.metrics_log]} ms")
+    if saved != 2 or min(got) != 2 or last.step != 4 or any(
+            got[k] != ref_losses[k] for k in got):
+        raise AssertionError("the resumed DP run is not bit-exact with the "
+                             "uninterrupted one")
+    last.fingerprint()
+    shutil.rmtree(root, ignore_errors=True)
+    del ref, crashed, resumed, last
+    gc.collect()
+    close_pools()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (c) yi-6b pipelined
+    t1 = time.perf_counter()
+    cfg = get_config("yi-6b")
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab_size, PP_BATCH, device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        zero()
+        t = time.perf_counter()
+        pp = PP.pp_forward(PP.stack_params_by_stage(params, PP_STAGES), cfg,
+                           toks, PP_STAGES, PP_MICRO)
+        torch.cuda.synchronize()
+        pp_wall = time.perf_counter() - t
+        pp_launches = read()
+        t = time.perf_counter()
+        ref_logits, _ = lm.forward(params, cfg, tokens=toks)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t
+    rel = ((pp.float() - ref_logits.float()).norm()
+           / ref_logits.float().norm()).item()
+    same = bool(torch.equal(pp, ref_logits))
+    print(f"   (c) {cfg.name} whole ({cfg.num_layers} layers, {cfg.dtype}), "
+          f"tokens {PP_BATCH}: pp_forward over {PP_STAGES} stages x "
+          f"{PP_MICRO} microbatches ({pp_wall * 1e3:.3f} ms) against forward "
+          f"({fwd_wall * 1e3:.3f} ms): logits {tuple(pp.shape)}, relative L2 "
+          f"{rel:.3e}, bitwise equal (required): {same}; launches "
+          f"{pp_launches}")
+    want = dict.fromkeys(counters, 0) | {"K5": cfg.num_layers * PP_MICRO}
+    if pp_launches != want or not same or not bool(pp.isfinite().all()):
+        raise AssertionError(f"{cfg.name}: the pipelined forward is not "
+                             f"the forward, or K5 ran {pp_launches}")
+    del params, pp, ref_logits
+    release()
+    cut = dataclasses.replace(cfg, num_layers=PP_GRAD_LAYERS)
+    params = PP.stack_params_by_stage(
+        lm.init_model(cut, torch.Generator(dev).manual_seed(0), dev),
+        PP_GRAD_STAGES)
+    pp = tree.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    zero()
+    total, m = PP.pp_loss_fn(pp, cut, {"tokens": toks, "labels": toks},
+                             PP_GRAD_STAGES, PP_GRAD_MICRO)
+    grads = dict(zip((k for k, _ in tree.flatten(pp)),
+                     torch.autograd.grad(total, tree.leaves(pp))))
+    grad_launches = read()
+    stage_sums = {k: [float(g[s].float().abs().sum())
+                      for s in range(PP_GRAD_STAGES)]
+                  for k, g in grads.items()
+                  if k.startswith("['blocks_scanned']")}
+    smallest = [min(v[s] for v in stage_sums.values())
+                for s in range(PP_GRAD_STAGES)]
+    print(f"     gradient of pp_loss_fn on {cut.num_layers} layers, "
+          f"{PP_GRAD_STAGES} stages x {PP_GRAD_MICRO} microbatches: loss "
+          f"{float(m['loss'].detach()):.6f}, launches {grad_launches}; "
+          f"|grad| summed a stage, the smallest over the stacked blocks' "
+          f"leaves: {smallest}")
+    if grad_launches["K5"] != PP_GRAD_LAYERS * PP_GRAD_MICRO or not all(
+            np.isfinite(x) and x > 0 for v in stage_sums.values()
+            for x in v):
+        raise AssertionError(f"{cut.name}: a stage got no gradient, or K5 "
+                             f"ran {grad_launches}")
+    del params, pp, grads, total, toks
+    release()
+    print(f"     ({time.perf_counter() - t1:.3f} s)")
+
+    # (d) bench_model_step through the runner
+    t1 = time.perf_counter()
+    outdir = ROOT / "build" / "bench" / "model_step"
+    shutil.rmtree(outdir, ignore_errors=True)
+    text = quietly(bench_run.main, ["--only", "bench_model_step", "--smoke",
+                                    "--artifacts", str(outdir)])
+    rows = [line.split(",", 2) for line in text.splitlines()
+            if line.startswith("model_step.")]
+    written = sorted(os.listdir(outdir)) if outdir.exists() else []
+    print(f"   (d) --only bench_model_step --smoke "
+          f"({time.perf_counter() - t1:.3f} s), the wall clock on the card:")
+    for name, us, derived in rows:
+        print(f"     {name}: {us} us, {derived}")
+    if [r[0] for r in rows] != ["model_step.qwen1.5-0.5b.seq16",
+                                "model_step.qwen1.5-0.5b.dispatch_floor"] \
+            or not all(float(r[1]) > 0 for r in rows) or written:
+        raise AssertionError(f"bench_model_step printed {rows}, wrote "
+                             f"{written} (the reference's family writes "
+                             f"no artifact)")
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {DP_BUDGET_S} s budget "
+          f"({card})")
+    if took > DP_BUDGET_S:
+        raise AssertionError(f"phase 15 took {took:.3f} s, over its "
+                             f"{DP_BUDGET_S} s budget")
+    for fn in counters.values():
+        fn.launches = 0
+    return {"dp": dp_launches, "pp": pp_launches}
 
 
 if __name__ == "__main__":

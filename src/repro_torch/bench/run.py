@@ -14,6 +14,9 @@ schema-checked ``BENCH_<scenario>.json`` per scenario into
                          rank sweep {1,2,4,8} in this process, the rank
                          count a backend option (``--ranks`` narrows it)
   bench_metg_validation  Figure 14 / Table 6 (METG predicts the limit)
+  bench_model_step       §V-C applied to the port's own training runtime:
+                         a train step's time a layer against the dispatch
+                         floor (always on the wall clock)
   bench_moe_dispatch     MoE dispatch comm volume (SP-aware EP vs token
                          replication): analytic a2a bytes at the link rate
   bench_metg_payload     §V-F study: communication hiding — payload sweep,
@@ -61,6 +64,7 @@ MODULES = [
     "bench_imbalance",
     "bench_metg_scaling",
     "bench_metg_validation",
+    "bench_model_step",
     "bench_moe_dispatch",
     "bench_metg_payload",
     "bench_metg_imbalance",

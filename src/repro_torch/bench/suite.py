@@ -274,9 +274,10 @@ def _src_root() -> str:
 
 
 def cell_command(suite: Suite, cell: SuiteCell, out_dir: str,
-                 smoke: bool, python: str = sys.executable) -> List[str]:
+                 smoke: bool, python: str = sys.executable,
+                 device: Optional[str] = None) -> List[str]:
     """The exact serial CLI a cell runs — one family of
-    ``repro_torch.bench.run``."""
+    ``repro_torch.bench.run`` (``device``: where its wall clock runs)."""
     cmd = [python, "-m", "repro_torch.bench.run",
            "--only", cell.family,
            "--artifacts", out_dir,
@@ -285,15 +286,17 @@ def cell_command(suite: Suite, cell: SuiteCell, out_dir: str,
         cmd.append("--smoke")
     if cell.backends:
         cmd += ["--backends", ",".join(cell.backends)]
+    if device is not None:
+        cmd += ["--device", device]
     return cmd
 
 
 def _run_cell(suite: Suite, cell: SuiteCell, out_dir: str, rollout: int,
               smoke: bool, python: str, cwd: str,
-              env: Dict[str, str]) -> CellRun:
+              env: Dict[str, str], device: Optional[str]) -> CellRun:
     os.makedirs(out_dir, exist_ok=True)
     proc = subprocess.run(
-        cell_command(suite, cell, out_dir, smoke, python),
+        cell_command(suite, cell, out_dir, smoke, python, device),
         capture_output=True, text=True, cwd=cwd, env=env)
     return CellRun(cell=cell, out_dir=out_dir, rollout=rollout,
                    returncode=proc.returncode,
@@ -332,7 +335,8 @@ def _compare_rollout(primary_dir: str, rollout_run: CellRun,
 def run_suite(suite: Suite, out_dir: str, smoke: bool = False,
               python: str = sys.executable,
               cwd: Optional[str] = None,
-              parallel: Optional[int] = None) -> SuiteResult:
+              parallel: Optional[int] = None,
+              device: Optional[str] = None) -> SuiteResult:
     """Execute every cell (and its rollouts) and collect the outcome.
 
     Cells run as ``repro_torch.bench.run`` subprocesses, at most
@@ -358,7 +362,7 @@ def run_suite(suite: Suite, out_dir: str, smoke: bool = False,
     result = SuiteResult(suite=suite, out_dir=out_dir)
     with ThreadPoolExecutor(max_workers=max(1, nworkers)) as pool:
         futures = [pool.submit(_run_cell, suite, cell, d, r, smoke,
-                               python, cwd, env)
+                               python, cwd, env, device)
                    for cell, r, d in jobs]
         runs = [f.result() for f in futures]
 
@@ -396,6 +400,9 @@ def main(argv=None) -> None:
                     help="directory for the campaign's BENCH_*.json")
     ap.add_argument("--parallel", type=int, default=None,
                     help="override the suite's parallel cell count")
+    ap.add_argument("--device", default=None,
+                    help="where the cells' wall clocks run (default: the "
+                         "card; 'cpu' for the CPU)")
     ap.add_argument("--baseline", default=None,
                     help="directory of BENCH_*.json to diff the campaign "
                          "against; exit nonzero on regression")
@@ -412,7 +419,7 @@ def main(argv=None) -> None:
         sys.exit(2)
 
     result = run_suite(suite, args.artifacts, smoke=args.smoke,
-                       parallel=args.parallel)
+                       parallel=args.parallel, device=args.device)
     # the cells' CSV output is part of the campaign record — replay it
     # serially (one block per cell) so `suite ... | tee` is as greppable
     # as a serial run

@@ -49,6 +49,9 @@ DEFAULT_TIMEOUT_S = 300.0  # a call, and every gloo op inside a rank
 START_TIMEOUT_S = 300.0  # the ranks' start: import torch, reach the card
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 class RankError(RuntimeError):
     """A rank raised (its traceback in the message), died or timed out."""
 
@@ -107,7 +110,8 @@ class RankComm:
     of a ppermute, and each offset of a one-sided put, has its own tag, so
     no two messages in flight between two ranks share one);
     ``all_gather`` is tiled in rank order; ``all_to_all`` exchanges the
-    ``(ndev, ...)`` slabs of its input; ``all_reduce`` sums.  Each returns
+    ``(ndev, ...)`` slabs of its input; ``all_reduce`` sums (``psum``) or
+    takes the maximum (``pmax``).  Each returns
     a ``Pending``.  A communicator over a subgroup (``grid``'s axes) runs
     the collectives on it; ``p2p`` takes the pool's rank numbers.
     Before it posts anything an op waits for the device (timed as
@@ -234,15 +238,19 @@ class RankComm:
                           lambda got: finish(got[0]))
 
     def all_reduce(self, x: torch.Tensor, tag: int,
-                   finish: Callable = _same) -> Pending:
-        """The sum of every rank's ``x`` (``psum``)."""
-        buf = self._buffer(("sum", tag), x)  # summed in place
+                   finish: Callable = _same, op: str = "sum") -> Pending:
+        """The elementwise sum (``op="sum"``, ``psum``) or maximum
+        (``"max"``, ``pmax``) of every rank's ``x``."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unknown all_reduce op {op!r}; known: "
+                             f"{sorted(_REDUCE_OPS)}")
+        buf = self._buffer((op, tag), x)  # reduced in place
 
         def post(outs):
-            return [dist.all_reduce(outs[0], group=self.group,
-                                    async_op=True)]
+            return [dist.all_reduce(outs[0], op=_REDUCE_OPS[op],
+                                    group=self.group, async_op=True)]
 
-        return self._post([(x, ("sum", tag))], post, [buf],
+        return self._post([(x, (op, tag))], post, [buf],
                           lambda got: finish(got[0]))
 
     def grid(self, data: int, model: int) -> "GridComm":

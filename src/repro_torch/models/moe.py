@@ -56,6 +56,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import tree as T
 from ..dist.collectives import TokenA2APlan, dispatch_capacity
 from .layers import _act, _dense_init, dtype_of
 
@@ -244,21 +245,8 @@ def _shard(p: Dict, data: int, model: int, r: int) -> Dict:
             "w_down": p["w_down"][e, f, :].clone()}
 
 
-_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-
-
-def _bits_sum(t: torch.Tensor) -> int:
-    """The tensor's elements read as integers of their width and summed,
-    exactly (int64, in chunks so that no copy of the whole tensor is
-    made): order-free, so the sums of a partition add up to the whole's
-    on any device."""
-    flat = t.detach().contiguous().view(-1).view(_BITS[t.element_size()])
-    return int(torch.stack([c.sum(dtype=torch.int64)
-                            for c in flat.split(1 << 24)]).sum())
-
-
 def _fingerprint(p: Dict) -> Dict[str, int]:
-    return {k: _bits_sum(v) for k, v in sorted(p.items())}
+    return {k: T.bits_sum(v) for k, v in sorted(p.items())}
 
 
 def _rank_fingerprint(ctx, job: int) -> Dict[str, int]:

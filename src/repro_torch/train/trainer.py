@@ -10,8 +10,9 @@
 
 The loop syncs the loss to the host once a step (``float``), as the
 reference's ``block_until_ready`` does, so a step's time is the device's.
-The data-parallel step (``grad_sync``) comes with the port's sharding
-slice.
+``grad_sync`` runs the data-parallel step (``train.dist_step``) on the
+rank processes of a pool: the replicated state lives in the ranks, rank 0
+writes the checkpoints, and a resume is bit-exact there too.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from ..backends.base import resolve_device
 from ..checkpoint import checkpoint as ckpt
 from ..data.pipeline import DataConfig, make_batch
+from . import dist_step as DS
 from . import train_step as TS
 
 
@@ -44,18 +46,31 @@ class LoopConfig:
 class Trainer:
     def __init__(self, cfg, tcfg: TS.TrainConfig, dcfg: DataConfig,
                  loop: LoopConfig, step_fn: Optional[Callable] = None,
-                 grad_sync: Optional[str] = None, device=None):
+                 grad_sync: Optional[str] = None, pool=None, device=None):
         """``step_fn`` defaults to ``make_train_step(cfg, tcfg)``; the state
         lives on ``device`` (``cuda`` unless the caller asks for the
-        CPU).  ``grad_sync`` (the reference's data-parallel step) raises
-        NotImplementedError."""
-        if grad_sync is not None:
-            raise NotImplementedError(
-                f"grad_sync={grad_sync!r}: the data-parallel train step "
-                f"(train/dist_step.py, compressed_psum) comes with the "
-                f"port's data-parallel slice")
+        CPU).  ``grad_sync`` selects the data-parallel step
+        (``train.dist_step``) over the ranks of ``pool`` (a
+        ``dist.ranks.RankPool``, the counterpart of a mesh's data axis):
+        ``"psum"`` for the exact all-reduce, ``"compressed_psum"`` for the
+        int8-range shared-scale one; the state then lives in the ranks,
+        on the pool's device, and ``run`` returns its ``DataParallel``."""
         self.cfg, self.tcfg, self.dcfg, self.loop = cfg, tcfg, dcfg, loop
-        self.device = resolve_device(device)
+        if grad_sync is not None:
+            if step_fn is not None:
+                raise ValueError("pass either step_fn or grad_sync, not both")
+            if grad_sync not in ("psum", "compressed_psum"):
+                raise ValueError(f"unknown grad_sync {grad_sync!r}")
+            if pool is None:
+                raise ValueError("grad_sync needs a pool of rank processes "
+                                 "(the data axis)")
+            compress = grad_sync == "compressed_psum"
+            self._open = lambda seed: DS.DataParallel.open(
+                pool, cfg, tcfg, compress, seed, self.loop.ckpt_dir)
+            step_fn = lambda dp, batch: (dp, dp.run_step(batch))  # noqa
+        else:
+            self.device = resolve_device(device)
+            self._open = self._open_local
         self.step_fn = step_fn or TS.make_train_step(cfg, tcfg)
         self.metrics_log: List[Dict] = []
         self.straggler_events: List[Dict] = []
@@ -65,9 +80,12 @@ class Trainer:
 
     # -- lifecycle -----------------------------------------------------------
     def init_or_restore(self, generator: Union[torch.Generator, int] = 0
-                        ) -> TS.TrainState:
-        state = TS.init_state(self.cfg, self.tcfg, generator, self.device)
+                        ) -> Union[TS.TrainState, DS.DataParallel]:
+        return self._open(generator)
+
+    def _open_local(self, generator) -> TS.TrainState:
         last = ckpt.latest_step(self.loop.ckpt_dir)
+        state = TS.init_state(self.cfg, self.tcfg, generator, self.device)
         if last is not None:
             state = ckpt.restore(self.loop.ckpt_dir, last, state,
                                  device=self.device)
@@ -78,7 +96,8 @@ class Trainer:
 
     # -- main loop -----------------------------------------------------------
     def run(self, generator: Union[torch.Generator, int] = 0,
-            fail_at: Optional[int] = None) -> TS.TrainState:
+            fail_at: Optional[int] = None
+            ) -> Union[TS.TrainState, DS.DataParallel]:
         os.makedirs(self.loop.ckpt_dir, exist_ok=True)
         prev = signal.signal(signal.SIGTERM, self._sigterm)
         state = self.init_or_restore(generator)
@@ -126,7 +145,10 @@ class Trainer:
 
     def _checkpoint(self, state, step: int):
         self._join_ckpt()
-        self._pending_ckpt = ckpt.save(self.loop.ckpt_dir, step, state)
+        if isinstance(state, DS.DataParallel):
+            state.save(self.loop.ckpt_dir, step)  # committed on return
+        else:
+            self._pending_ckpt = ckpt.save(self.loop.ckpt_dir, step, state)
 
     def _join_ckpt(self):
         if self._pending_ckpt is not None:

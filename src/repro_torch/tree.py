@@ -9,7 +9,9 @@ same leaf in both packages (the checkpoint manifest keeps it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
 
 
 def flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
@@ -59,6 +61,25 @@ def unflatten(like: Any, new_leaves: list) -> Any:
         raise ValueError(f"{len(new_leaves)} leaves for a tree of "
                          f"{len(keys)}")
     return _rebuild(like, "", dict(zip(keys, new_leaves)))
+
+
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def bits_sum(t: torch.Tensor) -> int:
+    """The tensor's elements read as integers of their width and summed,
+    exactly (int64, in chunks so that no copy of the whole tensor is
+    made): order-free, so the sums of a partition add up to the whole's
+    on any device."""
+    flat = t.detach().contiguous().view(-1).view(_BITS[t.element_size()])
+    return int(torch.stack([c.sum(dtype=torch.int64)
+                            for c in flat.split(1 << 24)]).sum())
+
+
+def fingerprint(tree: Any) -> Dict[str, int]:
+    """``bits_sum`` of every leaf, by its key: two trees with equal
+    fingerprints hold the same bits but for an unlikely collision."""
+    return {k: bits_sum(v) for k, v in flatten(tree)}
 
 
 def _rebuild(tree: Any, path: str, by_key: dict) -> Any:

@@ -1205,3 +1205,127 @@ def test_bf16_expert_products_differentiate_on_card(cuda):
     state, m = TS.make_train_step(cfg, tcfg)(state, make_batch(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0))
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+# --------------------------------------- data-parallel and pipelined training
+def _rank_compressed(ctx, v):
+    from repro_torch.dist.compression import compressed_psum
+
+    return compressed_psum(torch.from_numpy(v).to(ctx.device), ctx.comm,
+                           tag=7).cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_compressed_psum_on_card_ranks_matches_the_cpu_ranks(cuda):
+    """``compressed_psum`` on 2 rank processes sharing the card gives the
+    bits it gives on 2 CPU ranks (a float32 max, IEEE division, round half
+    to even, an exact int32 sum)."""
+    from repro_torch.dist.ranks import get_pool
+
+    rs = np.random.RandomState(0)
+    vs = [(rs.randn(1000, 33) * (r + 1)).astype(np.float32) for r in range(2)]
+    got = get_pool(2, cuda).map(_rank_compressed, [(v,) for v in vs])
+    want = get_pool(2, torch.device("cpu")).map(_rank_compressed,
+                                                [(v,) for v in vs])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress", [False, True])
+def test_reduced_dp_step_on_card_matches_the_single_device_step(cuda,
+                                                                compress):
+    """A reduced float32 qwen1.5-0.5b, 2 rank processes on the card against
+    the card's single-device step from the same seed: the replicas start
+    with the controller's bits and stay equal, K5 runs twice a layer a rank
+    step (forward and remat), and the losses are within the reference's
+    tolerances (``tests/test_distributed.py``: 1e-4 with ``psum``, 2e-2
+    with compression), the parameters within its 1e-5 with ``psum``.  The
+    compressed run is a function of the ranks' split, so it is held to the
+    same run on 2 CPU ranks from the same state (which
+    ``tests/test_torch_dist_step.py`` holds to the reference): the update
+    within 5e-3 relative L2, the grad norms within 1e-4 (the CPU tests'
+    bounds)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.dist.ranks import get_pool
+    from repro_torch.train import dist_step as DS
+    from repro_torch.train import train_step as TS
+
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    tcfg = TS.TrainConfig(base_lr=1e-3, warmup_steps=2, total_steps=40)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    state = TS.init_state(cfg, tcfg, torch.Generator(cuda).manual_seed(0),
+                          cuda)
+    start = [t.detach().cpu().clone() for t in T.leaves(state.params)]
+    dp = DS.DataParallel(get_pool(2, cuda), cfg, tcfg, compress=compress,
+                         seed=0)
+    assert dp.fingerprint() == T.fingerprint(state.params)
+    if compress:
+        on_cpu = DS.DataParallel(get_pool(2, torch.device("cpu")), cfg,
+                                 tcfg, compress=True).load(state)
+    step = TS.make_train_step(cfg, tcfg)
+    gnorms = {"card": [], "cpu": []}
+    for s in range(3):
+        batch = make_batch(dcfg, s)
+        state, m = step(state, batch)
+        got = dp.run_step(batch)
+        assert abs(got["loss"] - float(m["loss"])) <= (
+            2e-2 if compress else 1e-4)
+        assert [st["K5"] for st in dp.stats] == [2 * cfg.num_layers] * 2
+        dp.fingerprint()
+        if compress:
+            gnorms["card"].append(got["grad_norm"])
+            gnorms["cpu"].append(on_cpu.run_step(batch)["grad_norm"])
+    mine = T.leaves(dp.state().params)
+    if not compress:
+        for a, b in zip(mine, T.leaves(state.params)):
+            assert float((a.float() - b.float().cpu()).abs().max()) <= 1e-5
+        return
+    want = T.leaves(on_cpu.state().params)
+    num = sum(float((a - b).double().square().sum())
+              for a, b in zip(mine, want))
+    den = sum(float((b - s0).double().square().sum())
+              for b, s0 in zip(want, start))
+    assert (num / den) ** 0.5 <= 5e-3
+    np.testing.assert_allclose(gnorms["card"], gnorms["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_pp_loss_gradients_on_card_through_k5_match_the_plain_path(cuda):
+    """``pp_loss_fn`` of a reduced float32 yi-6b at 4 layers, 2 stages x 4
+    microbatches, on the card: K5 once a layer a microbatch (its autograd
+    function), every stage's blocks get a gradient, and every gradient is
+    the plain path's within 1e-3 of its leaf's largest (K5's forward is
+    its plain version's within 2e-5 (1 + |o|) a layer, and the backward
+    is the plain graph on those outputs)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.dist import pipeline as PP
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(reduced(get_config("yi-6b")), num_layers=4)
+    params = PP.stack_params_by_stage(M.init_model(cfg, 0, cuda), 2)
+    toks = torch.randint(0, cfg.vocab_size, (8, 32), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+
+    def grads(c):
+        pp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        total, _ = PP.pp_loss_fn(pp, c, batch, 2, 4)
+        return dict(zip((k for k, _ in T.flatten(pp)),
+                        torch.autograd.grad(total, T.leaves(pp))))
+
+    n = flash_attention.launches
+    got = grads(cfg)
+    assert flash_attention.launches - n == cfg.num_layers * 4
+    want = grads(dataclasses.replace(cfg, kernel_impl="plain"))
+    for key, w in want.items():
+        top = float(w.abs().max())
+        assert top > 0 and bool(got[key].isfinite().all()), key
+        assert float((got[key] - w).abs().max()) <= 1e-3 * top, key
+        if key.startswith("['blocks_scanned']"):
+            assert all(float(got[key][s].abs().sum()) > 0 for s in range(2))

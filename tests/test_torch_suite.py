@@ -1,9 +1,11 @@
 """The port's runner, bench families and suite layer equal the reference's.
 
-Each of the ten families, run on the synthetic clock with ``--smoke``,
+Each of the twelve families, run on the synthetic clock with ``--smoke``,
 writes the artifacts the reference's family writes, with the backend
 names mapped (the reference's scaling family runs its ``run_rank_cell`` in
-this process instead of a JAX child process); the suite parses and
+this process instead of a JAX child process); ``bench_model_step``, which
+times real train steps whatever the timer, runs on the CPU and gives the
+reference's rows, names and extras; the suite parses and
 validates TOML as the reference's does, runs its cells as ``python -m
 repro_torch.bench.run`` subprocesses and byte-compares rollouts.
 """
@@ -39,7 +41,7 @@ def mapped(doc):
 def test_families_are_the_reference_families_less_the_lm_ones():
     from benchmarks.run import MODULES
 
-    assert FAMILIES == [m for m in MODULES if m != "bench_model_step"]
+    assert FAMILIES == MODULES  # bench_model_step too, in the same order
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -50,8 +52,11 @@ def test_family_writes_the_reference_artifacts(family, tmp_path,
     ctx = RefContext(smoke=True, artifacts_dir=str(tmp_path / "ref"),
                      timer=rb.SyntheticTimer())
     want_rows = importlib.import_module(f"benchmarks.{family}").run(ctx)
+    # bench_model_step runs on the wall clock whatever the timer: the CPU
+    device = "cpu" if family == "bench_model_step" else None
     prun.main(["--only", family, "--smoke", "--timer", "synthetic",
-               "--artifacts", str(tmp_path / "port")])
+               "--artifacts", str(tmp_path / "port")]
+              + (["--device", device] if device else []))
     port = tmp_path / "port"  # bench_moe_dispatch writes no artifact
     got = sorted(os.listdir(port)) if port.exists() else []
     assert got == sorted(port_label(os.path.basename(p)[:-5]) + ".json"
@@ -65,7 +70,20 @@ def test_family_writes_the_reference_artifacts(family, tmp_path,
     from repro_torch.bench import SyntheticTimer
     from repro_torch.bench.families.common import BenchContext
 
-    rows = mod.run(BenchContext(smoke=True, timer=SyntheticTimer()))
+    rows = mod.run(BenchContext(smoke=True, timer=SyntheticTimer(),
+                                device=device))
+    if family == "bench_model_step":
+        # timings on both sides: the same rows in the same order, each
+        # with the reference's extras, and every time measured
+        def keys(derived):
+            return [kv.split("=")[0] for kv in derived.split(";")]
+
+        assert [r.name for r in rows] == [port_label(r.name)
+                                          for r in want_rows]
+        assert [keys(r.derived) for r in rows] == [keys(r.derived)
+                                                   for r in want_rows]
+        assert all(r.us_per_call > 0 for r in rows)
+        return
     # the same rows; a family over the registry takes it in name order,
     # and the port's names sort otherwise
     want = sorted((port_label(r.name), r.us_per_call, r.derived)
@@ -204,6 +222,9 @@ def test_cell_command_is_the_serial_cli():
         "PY", "-m", "repro_torch.bench.run", "--only", "bench_metg_scaling",
         "--artifacts", "/out", "--timer", "synthetic", "--smoke",
         "--backends", "torch-csp,torch-auto"]
+    assert psu.cell_command(suite, suite.cells[0], "/out", smoke=False,
+                            python="PY", device="cpu")[-2:] == [
+        "--device", "cpu"]
 
 
 def test_compare_rollout_flags_byte_drift(tmp_path):
@@ -256,3 +277,38 @@ def test_two_family_suite_with_rollouts_passes_its_byte_compare(tmp_path,
     run = psu.CellRun(cell=suite.cells[1], out_dir=str(roll), rollout=1,
                       returncode=0, stdout="", stderr="")
     assert len(psu._compare_rollout(str(out), run)) == 1
+
+
+def test_metg_study_example_matches_the_reference_on_the_synthetic_clock(
+        capsys):
+    """``examples/torch_metg_study.py --fast`` on the synthetic clock (the
+    port's counterpart of ``examples/metg_study.py``): every backend and
+    pattern of its table, each METG and peak rate the reference's
+    ``metg_for`` gives on the same clock for the backend of that name."""
+    import importlib.util
+    from pathlib import Path
+
+    from benchmarks.common import metg_for
+    from repro.backends import backend_names
+    from repro_torch.bench.names import PORT_NAMES
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_metg_study.py"
+    spec = importlib.util.spec_from_file_location("torch_metg_study", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    table, curve = mod.main(["--fast", "--timer", "synthetic"])
+    assert "METG(50%) =" in capsys.readouterr().out
+    ctx = RefContext(timer=rb.SyntheticTimer())
+    want = {}
+    for be in backend_names():
+        for pat, kw, ng in mod.CASES:
+            name = pat + ("_x4" if ng > 1 else "")
+            want[PORT_NAMES[be], name] = metg_for(
+                ctx, be, pat, name=f"metg_study.{be}.{name}", num_graphs=ng,
+                iterations_hi=512, n_points=5, **kw)
+    assert sorted(table) == sorted(want)
+    for key, res in table.items():
+        assert (res.metg, res.peak_rate) == (want[key].metg,
+                                             want[key].peak_rate), key
+    assert len(curve.points) == 8

@@ -2,7 +2,7 @@
 sizes (``tests/test_trainer.py``: reduced qwen1.5-0.5b, 16 tokens, batch
 4): failure injection with a bit-exact resume, the straggler watchdog,
 SIGTERM (checkpoint, then exit), an in-flight save joined when the loop
-raises, and the data-parallel step refused by name."""
+raises, and the data-parallel step refused without a pool of ranks."""
 import os
 import signal
 
@@ -111,8 +111,12 @@ def test_in_flight_save_is_joined_when_the_loop_raises(setup, tmp_path):
 
 
 def test_grad_sync_names_the_data_parallel_slice(setup, tmp_path):
+    """The data-parallel step runs on a pool's rank processes (the data
+    axis): asked for without one, the trainer names what it needs
+    (``tests/test_torch_dist_step.py`` runs it)."""
     cfg, tcfg, dcfg = setup
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(ValueError, match="grad_sync needs a pool of rank "
+                       "processes"):
         Trainer(cfg, tcfg, dcfg, loop(str(tmp_path)),
                 grad_sync="compressed_psum", device="cpu")
 
