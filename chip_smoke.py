@@ -206,7 +206,22 @@ raise on failure:
    microbatches, 8 x 1024 tokens) against ``forward``, bit for bit, K5
    once a layer a microbatch (256), and the gradient of
    ``pp_loss_fn`` on a 4-layer cut reaching every stage; and
-   ``bench_model_step`` at ``--smoke`` through the runner.
+   ``bench_model_step`` at ``--smoke`` through the runner;
+16. the dry-run cost model, in COST_BUDGET_S (40 s), reading the walls
+   phases 6 and 15 measured (no model runs): the roofline constants of
+   ``launch.roofline`` against the card's SMs and clock; (a) the
+   parameter bytes of ``model_spec`` (the meta device) of qwen1.5-0.5b
+   equal to the bytes ``init_model`` holds on the card, by the tensors
+   and by the allocator; (b) ``DryRunTimer``'s seconds for every point of
+   phase 6's stencil sweep on ``cuda-fused`` and ``torch-scan``, each at
+   most that point's measured wall (a roofline is a lower bound), their
+   ratio printed; (c) the dry run (``launch.dryrun.lower_cell``, fake
+   tensors on the CPU, a one-rank mesh) of phase 15's qwen1.5-0.5b train
+   step at DP_BATCH, its ``bound_step_s`` at most the single-device step
+   phase 15 measured, its ``useful_ratio`` and ``roofline_fraction``
+   printed.
+Every kernel's bound comes from its wrapper's declared cost
+(``kernels/_cost.py``), at the rate ``card_peaks`` computes.
 The "kernel times" phase runs the plain K3 and K4 (1.13-1.44 s a call) one
 call a window, a cut for the time phase 13 takes.  It also times K6 at the five shapes Mamba-2 serving
 gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
@@ -261,15 +276,15 @@ from repro_torch.backends import csp  # noqa: E402
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench import suite as bench_suite  # noqa: E402
 from repro_torch.bench import tuner  # noqa: E402
-from repro_torch.bench import (ScenarioSpec, SweepControls,  # noqa: E402
-                               compute_metg, elapsed_s, imbalance_study_specs,
+from repro_torch.bench import (DryRunTimer, ScenarioSpec,  # noqa: E402
+                               SweepControls, compute_metg, elapsed_s, imbalance_study_specs,
                                mitigation_curve, payload_curve,
                                payload_study_specs, read_bench_json,
                                run_engine_load, run_scenario,
                                write_bench_json)
 from repro_torch.bench.families import (  # noqa: E402
     bench_serve_load as serve_load_family)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core import (KernelSpec, check_outputs,  # noqa: E402
                               execute_reference, make_graph, pattern_names,
                               replicate)
@@ -282,6 +297,8 @@ from repro_torch.kernels import (_build, bodies,  # noqa: E402
 from repro_torch.kernels import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.dryrun import lower_cell  # noqa: E402
 from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
                                      ssd_chunked_plain, uses_tensor_cores)
 from repro_torch.models import model as lm  # noqa: E402
@@ -455,6 +472,8 @@ QWEN_VL_FRAMES = 1024  # embeddings of one forward of qwen2-vl-2b
 DP_BUDGET_S = 150
 DP_RANKS, DP_BATCH, DP_STEPS = 4, (8, 1024), 3
 DP_TCFG = dict(base_lr=1e-3, warmup_steps=2, total_steps=40)
+# phase 16: the dry-run cost model against the walls phases 6 and 15 took
+COST_BUDGET_S = 40
 DP_LOSS_TOL = {"psum": 1e-4, "compressed_psum": 2e-2}
 DP_UPDATE_RTOL, DP_MOVED_LOSS_TOL = 5e-2, 2e-3
 DP_EMU_RTOL, DP_EMU_GNORM_RTOL, DP_EMU_LOSS_TOL = 1e-4, 1e-5, 1e-5
@@ -489,6 +508,30 @@ GEMMA = ServeCase("recurrentgemma-2b", ((1, 8), (2, 12), (37, 16),
                                         (300, 24), (1000, 12), (3000, 32)),
                   4096, "K5", "local_attn", "flash_attention", (1000, 3000),
                   3000)
+
+
+def metg_spec(be_name: str, height: int, sms: int) -> ScenarioSpec:
+    """Phase 6's METG scenario: stencil / compute, WIDTH columns."""
+    return ScenarioSpec(
+        name=f"metg.{be_name}.stencil", backend=be_name, pattern="stencil",
+        kernel="compute", width=WIDTH, height=height, cores=sms,
+        sweep=SweepControls(iterations_hi=4096, n_points=7, repeats=3,
+                            warmup=1))
+
+
+def card_peaks(sms: int, max_mhz: float) -> tuple:
+    """(fp32 peak, bf16 tensor-core peak) in FLOP/s: SMs x 128 lanes x 2
+    x clock, and SMs x 4096 x clock."""
+    return (sms * FP32_LANES_PER_SM * 2 * max_mhz * 1e6,
+            sms * BF16_FLOP_PER_SM_CLOCK * max_mhz * 1e6)
+
+
+def bound_of(flops: float, nbytes: float, peak: float) -> tuple:
+    """(seconds, "operations" or "bytes"): the larger of the operations
+    at ``peak`` and the bytes at HBM_BYTES_PER_S."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
 
 
 def phase(title: str):
@@ -689,16 +732,20 @@ def ssd_agree(name: str, got, want) -> float:
     return worst
 
 
+def meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def ssd_bound(B, S, H, P, N, chunk, in_bytes):
-    """(operations, bytes) K6 needs: the causal half of the score and intra
-    products, the inter and state products; inputs read, outputs written
-    once (x, B, C and y in ``in_bytes``, dt, A and the state in f32)."""
-    nc = S // chunk
-    tri = chunk * (chunk + 1) // 2
-    flops = B * H * nc * (2 * tri * (N + P) + 4 * chunk * N * P)
-    nbytes = (2 * B * S * H * P * in_bytes + 2 * B * S * N * in_bytes
-              + B * S * H * 4 + H * 4 + B * H * P * N * 4)
-    return flops, nbytes
+    """(operations, bytes) K6 needs: its declared cost (``ssd_chunked.
+    cost``: the causal half of the score and intra products, the inter
+    and state products; inputs read, outputs written once, x, B, C and y
+    in ``in_bytes``, dt, A and the state in f32)."""
+    dt = {2: torch.bfloat16, 4: torch.float32}[in_bytes]
+    c = ssd_chunked.cost(meta(B, S, H, P, dtype=dt), meta(B, S, H), meta(H),
+                         meta(B, S, 1, N, dtype=dt), meta(B, S, 1, N, dtype=dt),
+                         None, chunk)
+    return c.flops, c.bytes
 
 
 def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dev, dtype=torch.float32, seed=0):
@@ -727,17 +774,15 @@ def attn_agree(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def attn_cost(B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, in_bytes):
-    """(operations, bytes) of the attention function: 4 D flops a head for
-    every allowed (query, key) pair (the score and its share of P V), q, k
-    and v read and o written once."""
-    qpos = q_offset + np.arange(Sq)
-    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
-    lo = (np.maximum(qpos - window + 1, 0) if window is not None
-          else np.zeros(Sq, np.int64))
-    pairs = int(np.clip(hi - lo, 0, None).sum())
-    flops = 4 * D * Hq * B * pairs
-    nbytes = in_bytes * B * (2 * Sq * Hq * D + 2 * Skv * Hkv * D)
-    return flops, nbytes
+    """(operations, bytes) of the attention function: K5's declared cost
+    (``flash_attention.cost``: 4 D flops a head for every allowed (query,
+    key) pair, the score and its share of P V; q, k and v read and o
+    written once)."""
+    dt = {2: torch.bfloat16, 4: torch.float32}[in_bytes]
+    kv = meta(B, Skv, Hkv, D, dtype=dt)
+    c = flash_attention.cost(meta(B, Sq, Hq, D, dtype=dt), kv, kv, causal,
+                             window, q_offset)
+    return c.flops, c.bytes
 
 
 def k5_tiles(Sq, Skv, causal, window, q_offset, block=64) -> int:
@@ -863,8 +908,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     props = torch.cuda.get_device_properties(0)
     sms = props.multi_processor_count
     max_mhz = float(smi("clocks.max.sm").split()[0])
-    peak_flops = sms * FP32_LANES_PER_SM * 2 * max_mhz * 1e6
-    peak_bf16 = sms * BF16_FLOP_PER_SM_CLOCK * max_mhz * 1e6
+    peak_flops, peak_bf16 = card_peaks(sms, max_mhz)
     print(f"   SMs {sms}, max SM clock {max_mhz:.0f} MHz, fp32 peak "
           f"{peak_flops / 1e12:.3f} TFLOP/s (SMs x 128 lanes x 2 x clock), "
           f"bf16 tensor-core peak {peak_bf16 / 1e12:.3f} TFLOP/s (SMs x "
@@ -914,9 +958,13 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     done(t0)
 
     def bound(flops: float, nbytes: float, peak: float = peak_flops):
-        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        return ((t_ops, "operations") if t_ops >= t_bytes
-                else (t_bytes, "bytes"))
+        return bound_of(flops, nbytes, peak)
+
+    def declared(fn, *args, **kw):
+        """A K1-K4 call's bound from its declared cost: its elementwise
+        operations at the fp32 peak, its bytes at HBM's rate."""
+        c = fn.cost(*args, **kw)
+        return bound(c.ops, c.bytes)
 
     # -- 3. kernels against their plain versions -----------------------
     t0 = phase("3. kernels vs plain versions on the card")
@@ -1237,37 +1285,23 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                              kernels_a_call=1),
                  timed(lambda: taskbench_compute_plain(tiles, its,
                                                        MAIN_ITERS), 20),
-                 bound(WIDTH * 1024 * 2 * MAIN_ITERS,
-                       WIDTH * (1024 * 8 + 4)), None))
+                 declared(taskbench_compute, tiles, its, MAIN_ITERS), None))
     xs = (1.0 + torch.zeros(WIDTH, size, device=dev))
     itm = torch.full((WIDTH,), MEM_ITERS, dtype=torch.int32, device=dev)
-    nwin = size // span
-    reps = sum(MEM_ITERS // nwin + (w < MEM_ITERS % nwin)
-               for w in range(nwin))
     rows.append(("K2", timed(lambda: taskbench_memory(xs, itm, span), 50,
                              kernels_a_call=1),
                  timed(lambda: taskbench_memory_plain(xs, itm, span), 5),
-                 bound(WIDTH * reps * span * 2, WIDTH * (size * 8 + 4)),
-                 None))
+                 declared(taskbench_memory, xs, itm, span), None))
     tabs, kw, _, _ = fused_pair([stencil])
-    table_bytes = sum(t.numel() * 4 for t in tabs[:4])
     rows.append(("K3", timed(lambda: taskbench_fused(*tabs, **kw), 10,
                              kernels_a_call=1),
                  timed(lambda: taskbench_fused_plain(*tabs, **kw), 1),
-                 bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
-                       table_bytes + WIDTH * stencil.payload_elems * 4),
-                 None))
-    plan, otabs, okw, _, _ = onesided_pair(stencil, WIDTH)
-    n_off = len(plan._onesided_offsets)
-    # tables once, the output once, and every put row written and read once
-    inbox_bytes = 2 * WIDTH * (HEIGHT - 1) * n_off * plan.a2a_cap \
-        * stencil.payload_elems * 4
+                 declared(taskbench_fused, *tabs, **kw), None))
+    _, otabs, okw, _, _ = onesided_pair(stencil, WIDTH)
     rows.append(("K4", timed(lambda: taskbench_onesided(*otabs, **okw), 10,
                              kernels_a_call=1),
                  timed(lambda: taskbench_onesided_plain(*otabs, **okw), 1),
-                 bound(stencil.num_tasks * 1024 * 2 * MAIN_ITERS,
-                       sum(t.numel() * 4 for t in otabs[:6]) + inbox_bytes
-                       + WIDTH * stencil.payload_elems * 4), None))
+                 declared(taskbench_onesided, *otabs, **okw), None))
     rows.append(("K5",) + attention_times(dev, bound, peak_bf16, sms))
     rows.append(("K6",) + ssd_times(dev, bound, peak_bf16))
     for name, t, plain, (bs, by), library in rows:
@@ -1313,13 +1347,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     for be_name in ("cuda-fused", ONESIDED, "cuda-graph", "torch-scan",
                     "torch-host"):
         height = HOST_METG_HEIGHT if be_name == "torch-host" else HEIGHT
-        spec = ScenarioSpec(
-            name=f"metg.{be_name}.stencil", backend=be_name,
-            pattern="stencil", kernel="compute", width=WIDTH, height=height,
-            cores=sms, sweep=SweepControls(iterations_hi=4096, n_points=7,
-                                           repeats=3, warmup=1))
         t1 = time.perf_counter()
-        res = run_scenario(spec)
+        res = run_scenario(metg_spec(be_name, height, sms))
         results[be_name] = res
         metg = res.metg_s
         print(f"   {be_name} (H={height}, {time.perf_counter() - t1:.3f} s):"
@@ -1356,6 +1385,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     moe_launches = moe_phase(dev, card, counters, bound, peak_bf16, sms)
     train = train_phase(dev, card, counters, bound, peak_bf16, sms)
     dp = dp_phase(dev, card, counters)
+    cost_phase(dev, card, sms, max_mhz, results, dp["single_step_s"])
 
     meta = {
         "K1": ("taskbench_compute", "src/repro_torch/kernels/csrc/compute.cu",
@@ -3430,7 +3460,90 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
                              f"{DP_BUDGET_S} s budget")
     for fn in counters.values():
         fn.launches = 0
-    return {"dp": dp_launches, "pp": pp_launches}
+    return {"dp": dp_launches, "pp": pp_launches,
+            "single_step_s": min(single_walls[1:])}
+
+
+def cost_phase(dev, card: str, sms: int, max_mhz: float, metg: dict,
+               single_step_s: float) -> None:
+    """Phase 16: the dry-run cost model against the card (see the module
+    doc); raises on a failed check or past COST_BUDGET_S."""
+    t0 = phase(f"16. the dry-run cost model (budget {COST_BUDGET_S} s; no "
+               f"model runs: the walls of phases 6 and 15)")
+    _, peak_bf16 = card_peaks(sms, max_mhz)
+    print(f"   launch.roofline: {roofline.SMS} SMs at "
+          f"{roofline.MAX_SM_CLOCK_HZ / 1e6:.0f} MHz, bf16 peak "
+          f"{roofline.PEAK_FLOPS / 1e12:.3f} TFLOP/s, HBM "
+          f"{roofline.HBM_BW / 1e12} TB/s, link {roofline.LINK_BW / 1e9} "
+          f"GB/s; the card: {sms} SMs at {max_mhz:.0f} MHz, bf16 peak "
+          f"{peak_bf16 / 1e12:.3f} TFLOP/s")
+    if roofline.SMS != sms or roofline.PEAK_FLOPS != peak_bf16:
+        raise AssertionError("launch.roofline's constants are not this "
+                             "card's")
+
+    # (a) the meta device's parameter bytes against the card's
+    cfg = get_config("qwen1.5-0.5b")
+    spec_params, _ = lm.model_spec(cfg)
+    meta_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(spec_params))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    card_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(params))
+    print(f"   (a) {cfg.name}: model_spec {meta_bytes} bytes on the meta "
+          f"device; init_model holds {card_bytes} bytes of tensors on the "
+          f"card, {held} bytes by the allocator")
+    del params
+    release()
+    if not meta_bytes == card_bytes == held:
+        raise AssertionError("model_spec's parameter bytes differ from "
+                             "what init_model holds on the card")
+
+    # (b) DryRunTimer beside phase 6's walls
+    timer = DryRunTimer()
+    for be_name in ("cuda-fused", "torch-scan"):
+        res = metg[be_name]
+        for p in sorted(res.points, key=lambda p: -p.iterations):
+            est = timer.measure(be_name, res.spec.graphs(p.iterations))
+            print(f"   (b) {be_name}, stencil, iterations {p.iterations:5d}:"
+                  f" DryRunTimer {est:.6e} s, phase 6's wall "
+                  f"{p.wall_time:.6e} s, ratio {est / p.wall_time:.4f}")
+            if est > p.wall_time:
+                raise AssertionError(f"{be_name}: the roofline estimate is "
+                                     f"above the measured wall")
+
+    # (c) the dry run of phase 15's single-device step
+    B, S = DP_BATCH
+    shape = InputShape("dp_batch", S, B, "train")
+    r = lower_cell(cfg.name, shape, False, accum=1,
+                   mesh_spec=((1,), ("data",)))
+    terms = roofline.roofline_terms(
+        {"flops": r["flops_per_device"], "hbm_bytes":
+         r["hbm_bytes_per_device"], "attn_sq_bytes": r["attn_sq_bytes"],
+         "collectives": r["collectives"]}, cfg, shape, chips=1)
+    print(f"   (c) dry run of {cfg.name}'s train step at {B} x {S} on one "
+          f"rank (traced in {r['compile_s']} s on the CPU): "
+          f"{r['flops_per_device']:.6e} FLOPs, "
+          f"{r['hbm_bytes_per_device']:.6e} HBM bytes (unfused); compute "
+          f"{terms['compute_s'] * 1e3:.3f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.3f} ms; bound_step_s "
+          f"{terms['bound_step_s'] * 1e3:.3f} ms ({terms['dominant']}) "
+          f"against phase 15's step {single_step_s * 1e3:.3f} ms, ratio "
+          f"{terms['bound_step_s'] / single_step_s:.4f}; useful_ratio "
+          f"{terms['useful_ratio']:.4f}, roofline_fraction "
+          f"{terms['roofline_fraction']:.4f}")
+    if terms["bound_step_s"] > single_step_s:
+        raise AssertionError("the dry run's bound_step_s is above the "
+                             "measured step")
+    took = time.perf_counter() - t0
+    print(f"   phase time {took:.3f} s of its {COST_BUDGET_S} s budget "
+          f"({card})")
+    if took > COST_BUDGET_S:
+        raise AssertionError(f"phase 16 took {took:.3f} s, over its "
+                             f"{COST_BUDGET_S} s budget")
 
 
 if __name__ == "__main__":

@@ -108,6 +108,9 @@ class AutoBackend(Backend):
                 ) -> Callable[[], List[np.ndarray]]:
         return self.delegate(graphs).prepare(graphs)
 
+    def lowered_programs(self, graphs: Sequence[TaskGraph]):
+        return self.delegate(graphs).lowered_programs(graphs)
+
     def prepare_many(self, graphs: Sequence[TaskGraph]
                      ) -> Callable[[], List[np.ndarray]]:
         return self.delegate(graphs).prepare_many(graphs)

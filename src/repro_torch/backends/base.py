@@ -203,6 +203,17 @@ class Backend:
         """Execute ``graphs`` concurrently; per-graph outputs, same order."""
         return self.prepare_many(graphs)()
 
+    def lowered_programs(self, graphs: Sequence[TaskGraph]
+                         ) -> List[Callable[[], object]]:
+        """The whole-graph programs ``run_many`` executes, staged, as
+        zero-arg callables that run one of them eagerly (the counterpart
+        of the reference's ``lowered_hlo``).
+
+        Empty when the backend has no whole-graph program (host dispatch).
+        The dry-run timer runs each under ``launch.roofline``'s counter.
+        """
+        return []
+
 
 class StackedProgramBackend(Backend):
     """Shared scaffolding for single-device whole-program backends.
@@ -252,3 +263,11 @@ class StackedProgramBackend(Backend):
 
         runner.program = program
         return runner
+
+    def lowered_programs(self, graphs: Sequence[TaskGraph]
+                         ) -> List[Callable[[], object]]:
+        """The built program, uncaptured: the stacked one, else one over
+        the graphs."""
+        graphs = list(graphs)
+        built = self._build_stacked(graphs)
+        return [built if built is not None else self._build(graphs)]

@@ -51,6 +51,7 @@ runs once more under ``torch.profiler`` in every rank.
 """
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 from typing import Callable, List, NamedTuple, Optional, Sequence
@@ -305,6 +306,31 @@ class PlannedSPMDBackend(Backend):
 
         runner.profile = lambda: [run(profile=True)[1] for run in runs]
         return runner
+
+    def lowered_programs(self, graphs: Sequence[TaskGraph]
+                         ) -> List[Callable[[], object]]:
+        """Rank 0's program for each program ``run_many`` runs, staged in
+        this process; a call runs it on a fake process group of ``ranks``
+        ranks (``launch.dryrun.fake_group``): its exchanges are issued and
+        move nothing.  Every rank runs the same program on its own
+        columns."""
+        graphs = list(graphs)
+        combined = len(graphs) >= 2 and len({g.height for g in graphs}) == 1
+        programs = []
+        for group in ([graphs] if combined else [[g] for g in graphs]):
+            ctx = R.RankContext(0, self.ndev, self.device,
+                                R.DEFAULT_TIMEOUT_S)
+            _rank_stage(ctx, 0, [(g, p.without_tables(), *p.shard(0))
+                                 for g, p in ((g, self.plan(g))
+                                              for g in group)])
+            programs.append(functools.partial(self._fake_run, ctx))
+        return programs
+
+    def _fake_run(self, ctx: R.RankContext) -> List[torch.Tensor]:
+        from ..launch.dryrun import fake_group
+
+        with fake_group(self.ndev):
+            return _program(ctx.jobs[0], ctx.comm, {"body_s": 0.0})
 
     def prepare(self, graphs: Sequence[TaskGraph]):
         """Each graph its own program, run one after another."""

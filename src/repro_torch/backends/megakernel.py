@@ -46,6 +46,7 @@ from ..core.kernel_ref import mxu_weight
 from ..core.kernel_spec import COMPUTE_TILE_ELEMS, MXU_DIM, KernelSpec
 from ..dist import collectives as CC
 from ..kernels import _build, bodies
+from ..kernels._cost import Cost, costed, data_sum, nbytes
 from . import body
 from .base import StackedProgramBackend, register_backend
 
@@ -63,6 +64,29 @@ def scratch_elems(kernel: KernelSpec) -> int:
     return 0
 
 
+def body_ops(kernel: KernelSpec) -> int:
+    """Operations of one iteration of a task's body."""
+    if kernel.kind == "compute":
+        return 2 * COMPUTE_TILE_ELEMS
+    if kernel.kind == "memory":
+        return 2 * bodies.memory_geometry(kernel)[0]
+    if kernel.kind == "compute_mxu":
+        return 2 * MXU_DIM ** 3 + 3 * MXU_DIM ** 2
+    return 0
+
+
+def fused_cost(idx, mask, iters, base, mxu_w, *, kernel: KernelSpec,
+               ngraphs: int, height: int, payload_elems: int) -> Cost:
+    """K3's declared cost: the tables read and the final wave written
+    once; the body's operations for every task's iterations (this run's
+    table)."""
+    W = idx.shape[1]
+    tables = sum(nbytes(t) for t in (idx, mask, iters, base, mxu_w))
+    return Cost(0.0, tables + ngraphs * W * payload_elems * 4,
+                float(body_ops(kernel) * data_sum(iters)))
+
+
+@costed(fused_cost)
 def taskbench_fused_plain(idx: torch.Tensor, mask: torch.Tensor,
                           iters: torch.Tensor, base: torch.Tensor,
                           mxu_w: Optional[torch.Tensor], *,
@@ -126,6 +150,7 @@ def _check(idx, mask, iters, base, mxu_w, kernel: KernelSpec, ngraphs: int,
     _check_body(idx, mxu_w, kernel, height, payload_elems)
 
 
+@costed(fused_cost)
 def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
                     iters: torch.Tensor, base: torch.Tensor,
                     mxu_w: Optional[torch.Tensor], *, kernel: KernelSpec,
@@ -174,6 +199,23 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
 taskbench_fused.launches = 0
 
 
+def onesided_cost(idx, mask, iters, base, send_rows, offsets, mxu_w, *,
+                  kernel: KernelSpec, height: int, payload_elems: int
+                  ) -> Cost:
+    """K4's declared cost: the tables read, every put row written to an
+    inbox and read from it once a timestep after the first, the final
+    wave written once; the body's operations for every task's iterations
+    (this run's table)."""
+    ranks, _, local, _ = idx.shape
+    n_off, cap = offsets.shape[0], send_rows.shape[2]
+    tables = sum(nbytes(t) for t in (idx, mask, iters, base, send_rows,
+                                      offsets, mxu_w))
+    inbox = 2 * ranks * (height - 1) * n_off * cap * payload_elems * 4
+    return Cost(0.0, tables + inbox + ranks * local * payload_elems * 4,
+                float(body_ops(kernel) * data_sum(iters)))
+
+
+@costed(onesided_cost)
 def taskbench_onesided_plain(idx: torch.Tensor, mask: torch.Tensor,
                              iters: torch.Tensor, base: torch.Tensor,
                              send_rows: torch.Tensor, offsets: torch.Tensor,
@@ -257,6 +299,7 @@ def onesided_blocks(device_index: int) -> int:
     return limit
 
 
+@costed(onesided_cost)
 def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
                        iters: torch.Tensor, base: torch.Tensor,
                        send_rows: torch.Tensor, offsets: torch.Tensor,

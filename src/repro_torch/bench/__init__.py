@@ -34,7 +34,7 @@ from .metg import (METGResult, SweepPoint, compute_metg, efficiency_curve,
                    geometric_iterations, observed_peak, run_sweep,
                    sweep_point, time_run)
 from .scenario import ScenarioSpec, SweepControls
-from .timers import SyntheticTimer, Timer, WallClockTimer
+from .timers import DryRunTimer, SyntheticTimer, Timer, WallClockTimer
 from .sweep import ScenarioResult, run_scenario
 from .artifact import (SCHEMA_VERSION, bench_artifact, read_bench_json,
                        validate_artifact, write_bench_json)
@@ -74,6 +74,7 @@ __all__ = [
     "Timer",
     "WallClockTimer",
     "SyntheticTimer",
+    "DryRunTimer",
     "ScenarioResult",
     "run_scenario",
     "SCHEMA_VERSION",

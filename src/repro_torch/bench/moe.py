@@ -5,11 +5,14 @@ Not a task-graph scenario — the "graph" is one MoE layer's token dispatch.
 The analytic path is pure host arithmetic: the per-rank all-to-all bytes
 from the same capacity math the a2a path uses
 (``dist.collectives.dispatch_capacity``), scored against the interconnect
-roofline ``LINK_BW``.  Its measured counterpart is the bytes that the
+roofline ``LINK_BW``.  Its measured counterparts are the bytes that the
 ranks' ``all_to_all`` moves in ``models.moe``'s a2a path
-(``ExpertGrid.stats``), which ``tests/test_torch_moe_a2a.py`` holds equal
-to it.  The reference's compiled path (the optimized HLO's collective
-bytes) needs the port's counterpart of the HLO walker and raises here.
+(``ExpertGrid.stats``, held equal to it by
+``tests/test_torch_moe_a2a.py``), and the *compiled* path:
+``lowered_moe_program`` is rank 0's program of the a2a path
+(``models.moe._a2a_local``) on a fake ``(data, model)`` process group,
+which ``launch.roofline``'s counter runs once, counting the collective
+bytes of every ``RankComm`` exchange at dispatch.
 
 The point of the scenario: SP-aware expert parallelism (``ep_mode="sp"``)
 cuts per-plane dispatch volume by |model| versus token replication —
@@ -21,10 +24,9 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict
 
+from ..launch.roofline import LINK_BW
+
 SCENARIO_NAME = "moe_dispatch"
-# bytes/s a direction of one card's NVLink 4 on an H100 SXM: 900 GB/s
-# both ways together (NVIDIA's H100 data sheet), not a measurement
-LINK_BW = 450e9
 
 
 @dataclass(frozen=True)
@@ -102,18 +104,51 @@ def analytic_a2a_bytes(spec: MoEDispatchSpec,
     }
 
 
+def lowered_moe_program(spec: MoEDispatchSpec):
+    """Rank 0's program of one MoE layer's a2a path on a ``(data, model)``
+    grid, as a zero-arg callable: the layer is built from seed 0 on the
+    CPU and rank 0 keeps its shard and its block of a zero input; a call
+    starts a fake process group of ``data * model`` ranks and runs the
+    rank's ``_a2a_local`` on it (its exchanges are issued and move
+    nothing)."""
+    import torch
+
+    from ..dist.ranks import DEFAULT_TIMEOUT_S, RankComm
+    from ..launch.dryrun import fake_group
+    from ..models import moe as MO
+    from ..models.layers import dtype_of
+
+    cfg = spec.config()
+    ranks = spec.data * spec.model
+    p = MO.init_moe(torch.Generator().manual_seed(0), cfg, dtype_of(cfg),
+                    "cpu")
+    x = torch.zeros(spec.batch, spec.seq, cfg.d_model)
+    sp, _, block = MO.rank_blocks(spec.batch, spec.seq, spec.data,
+                                  spec.model, spec.ep_mode)
+    shard, xb = MO._shard(p, spec.data, spec.model, 0), x[block(0)].clone()
+
+    def run():
+        with fake_group(ranks):
+            comms = RankComm(0, ranks, torch.device("cpu"),
+                             DEFAULT_TIMEOUT_S).grid(spec.data, spec.model)
+            return MO._a2a_local(xb, shard, cfg, comms, sp)
+
+    return run
+
+
 def moe_dispatch_report(spec: MoEDispatchSpec,
                         compiled: bool = False) -> Dict[str, float]:
-    """The scenario's measurements: the analytic a2a bytes and their
-    seconds at ``LINK_BW``.  ``compiled=True`` (the collective bytes of
-    the compiled program) raises: it needs the port's counterpart of the
-    reference's HLO walker (``launch.roofline``), which comes with the
-    sharding and launch slice (ROADMAP.md, Queue 1 item 6)."""
-    if compiled:
-        raise NotImplementedError(
-            "moe_dispatch_report(compiled=True) needs the port's "
-            "counterpart of launch.roofline's HLO walker, which comes with "
-            "the sharding and launch slice (ROADMAP.md, Queue 1 item 6)")
+    """The scenario's measurements: analytic a2a bytes (always) plus the
+    compiled program's collective bytes (rank 0's, counted at dispatch by
+    ``launch.roofline``) when ``compiled``."""
     out = dict(analytic_a2a_bytes(spec))
     out["a2a_roofline_s"] = out["a2a_bytes"] / LINK_BW
+    if compiled:
+        from ..launch.roofline import count_program
+
+        _, a = count_program(lowered_moe_program(spec))
+        colls = a["collectives"]
+        out["hlo_a2a_bytes"] = float(colls.get("all-to-all", 0.0))
+        out["hlo_allgather_bytes"] = float(colls.get("all-gather", 0.0))
+        out["hlo_collective_bytes"] = float(colls.get("total", 0.0))
     return out

@@ -47,6 +47,11 @@ the full table).
 Regression gate: ``--baseline <dir>`` diffs every written artifact against
 a snapshot of port artifacts (``bench.compare``) and exits nonzero when a
 scenario regressed beyond ``--baseline-threshold``.
+
+Tables: ``--tables`` splices the METG, serve-load and weak-scaling
+summaries of the written artifacts, and the committed planner winners,
+into ``--tables-file`` (``EXPERIMENTS_torch.md``; ``bench.tables``), only
+when every family ran.
 """
 from __future__ import annotations
 
@@ -157,6 +162,12 @@ def main(argv=None) -> None:
                          "nonzero on regression")
     ap.add_argument("--baseline-threshold", type=float, default=0.25,
                     help="relative slowdown tolerated by --baseline")
+    ap.add_argument("--tables", action="store_true",
+                    help="aggregate this run's BENCH_*.json artifacts into "
+                         "the paper-style METG summary table and append it "
+                         "to --tables-file (bench.tables)")
+    ap.add_argument("--tables-file", default="EXPERIMENTS_torch.md",
+                    help="markdown file --tables appends to")
     ap.add_argument("--tune", action="store_true",
                     help="regenerate the planner's tuning table "
                          "(bench.tuner) instead of running families: races "
@@ -171,6 +182,9 @@ def main(argv=None) -> None:
     if args.baseline and not args.artifacts:
         ap.error("--baseline requires --artifacts (the current run's "
                  "artifacts are what gets compared)")
+    if args.tables and not args.artifacts:
+        ap.error("--tables requires --artifacts (the tables aggregate "
+                 "the written artifacts)")
     if args.tune_baseline and not args.tune:
         ap.error("--tune-baseline requires --tune (there is no current "
                  "table to diff otherwise)")
@@ -225,6 +239,19 @@ def main(argv=None) -> None:
         print(f"{name}.elapsed,{(time.time() - t0) * 1e6:.0f},", flush=True)
     for path in ctx.written:
         print(f"artifact,0,{path}", flush=True)
+
+    if args.tables and failures:
+        # a red run wrote only part of the artifact set; regenerating the
+        # tables from it would silently drop the failed families' rows
+        print(f"run: skipping --tables splice into {args.tables_file}: "
+              f"{len(failures)} bench family(s) failed and the artifact "
+              f"set is partial", file=sys.stderr)
+    elif args.tables:
+        from .tables import append_metg_tables
+
+        tpath, skipped = append_metg_tables(args.artifacts, args.tables_file)
+        note = f" ({skipped} invalid artifact(s) skipped)" if skipped else ""
+        print(f"tables,0,{tpath}{note}", flush=True)
 
     regressed = False
     if args.baseline:

@@ -408,6 +408,11 @@ def main(argv=None) -> None:
                          "against; exit nonzero on regression")
     ap.add_argument("--baseline-threshold", type=float, default=0.25,
                     help="relative slowdown tolerated by --baseline")
+    ap.add_argument("--tables", action="store_true",
+                    help="aggregate the campaign's artifacts into the "
+                         "paper-style tables (bench.tables)")
+    ap.add_argument("--tables-file", default="EXPERIMENTS_torch.md",
+                    help="markdown file --tables appends to")
     args = ap.parse_args(argv)
 
     try:
@@ -435,6 +440,17 @@ def main(argv=None) -> None:
             print(f"suite: cell {label} failed:\n{detail}", file=sys.stderr)
     for line in result.summary().splitlines():
         print(f"suite,0,{line}", flush=True)
+
+    if args.tables and not result.ok:
+        print(f"suite: skipping --tables splice into {args.tables_file}: "
+              f"the campaign is red and the artifact set is partial",
+              file=sys.stderr)
+    elif args.tables:
+        from .tables import append_metg_tables
+
+        tpath, skipped = append_metg_tables(result.out_dir, args.tables_file)
+        note = f" ({skipped} invalid artifact(s) skipped)" if skipped else ""
+        print(f"tables,0,{tpath}{note}", flush=True)
 
     regressed = False
     if args.baseline:

@@ -16,8 +16,10 @@ the port's registry:
     exact METG crossovers against the analytic curve, and the charged
     seconds equal the reference's for every counterpart pair.
 
-The reference's dry-run roofline timer reads XLA's HLO; it has no
-counterpart here yet.
+``DryRunTimer``
+    The roofline cost model: runs each whole-graph program of the backend
+    (``Backend.lowered_programs``) once under ``launch.roofline``'s
+    counter and charges its binding term.
 """
 from __future__ import annotations
 
@@ -334,3 +336,41 @@ class SyntheticTimer:
             wall += (max(compute, comm) if overlap or onesided
                      else compute + comm)
         return wall
+
+
+@dataclass
+class DryRunTimer:
+    """Roofline cost model over the backend's whole-graph programs.
+
+    Requires a backend that exposes its programs
+    (``Backend.lowered_programs``); host-dynamic dispatch has no
+    whole-graph program and is not supported.  Each program runs once
+    under ``launch.roofline.CostCounter`` and is charged its binding term
+    (``launch.roofline.step_seconds``: matmul FLOPs, the kernels'
+    elementwise operations, HBM bytes, collective bytes, each at its
+    rate).  ``dispatch_overhead_s`` charges a fixed launch cost per
+    program (per-graph programs pay it per graph).
+    """
+
+    dispatch_overhead_s: float = 0.0
+    name: str = field(default="dryrun", init=False)
+    _backends: Dict[str, object] = field(default_factory=dict, repr=False)
+
+    def measure(self, backend_name: str, graphs: Sequence[TaskGraph]) -> float:
+        from ..launch.roofline import count_program, step_seconds
+
+        programs = cached_backend(self._backends,
+                                  backend_name).lowered_programs(graphs)
+        if not programs:
+            raise ValueError(
+                f"backend {backend_name!r} does not expose compiled HLO; "
+                "the dry-run timer needs a whole-graph program "
+                "(use wallclock or synthetic timers instead)")
+        # programs execute back-to-back, so each one's *own* binding term
+        # is summed (max-of-sums would let one program's compute hide
+        # another's communication)
+        wall = 0.0
+        for program in programs:
+            _, a = count_program(program)
+            wall += step_seconds(a)
+        return max(wall, 1e-12) + self.dispatch_overhead_s * len(programs)

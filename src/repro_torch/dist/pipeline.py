@@ -16,11 +16,12 @@ feeds the final norm and the unembedding.  The forward is differentiable
 (``pp_loss_fn`` under ``torch.autograd``; on the card K5 runs as its
 autograd function).  As in the reference, the blocks run without remat.
 
-Not ported: ``constrain_stage_stack``, which pins the stage dim of the
-stacked blocks to a mesh's ``stage`` axis under the logical-axis rules of
-``dist/sharding.py``.  The port has no logical-axis trees yet, so every
-stage here runs on the one device that holds the parameters; the
-placement comes with the sharding slice.
+Under the logical-axis rules of ``dist/sharding.py`` on a mesh with a
+``stage`` axis, ``constrain_stage_stack`` places the stage dim of the
+stacked blocks on that axis (each stage's weights on its own mesh plane),
+and the embeddings and logits take their rules' layouts, as in the
+reference; outside rules every stage runs on the one device that holds
+the parameters.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from .. import tree as T
 from ..core.graph import TaskGraph, make_graph
+from .sharding import constrain
 from ..models import layers as L
 from ..models import model as M
 
@@ -60,6 +62,24 @@ def stack_params_by_stage(params: Dict, num_stages: int) -> Dict:
     return out
 
 
+def constrain_stage_stack(pp_params: Dict) -> Dict:
+    """Pin the stage-stacked blocks to the ``stage`` mesh axis.
+
+    Under a 4D ``(pod, data, model, stage)`` rules context the leading
+    (stage) dim of every stacked block leaf is sharded over ``stage``, so
+    each pipeline stage's weights live on its own mesh plane and only the
+    activations move stage to stage.  Identity outside a rules context;
+    on meshes without a ``stage`` axis the stage dim stays whole.
+    """
+    if "blocks_scanned" not in pp_params:
+        return pp_params
+    out = {k: v for k, v in pp_params.items() if k != "blocks_scanned"}
+    out["blocks_scanned"] = T.tree_map(
+        lambda x: constrain(x, "stage", *([None] * (x.ndim - 1))),
+        pp_params["blocks_scanned"])
+    return out
+
+
 def _run_stage(pp_params: Dict, stage: int, h: torch.Tensor, cfg,
                positions: torch.Tensor):
     """-> (h', the stage's MoE aux (lb, z) summed over its layers)."""
@@ -85,6 +105,7 @@ def _pp_forward_with_aux(pp_params: Dict, cfg, tokens: torch.Tensor,
     if B % num_micro:
         raise ValueError(f"batch {B} not divisible by {num_micro} "
                          f"microbatches")
+    pp_params = constrain_stage_stack(pp_params)
     mb = B // num_micro
     dev = T.leaves(pp_params["embed"])[0].device
     positions = torch.arange(S, device=dev)[None, :].expand(mb, S)
@@ -102,6 +123,7 @@ def _pp_forward_with_aux(pp_params: Dict, cfg, tokens: torch.Tensor,
             if s == 0:
                 h = L.apply_embedding(pp_params["embed"],
                                       tokens[m * mb:(m + 1) * mb])
+                h = constrain(h, "batch", "seq", None)
             else:
                 h = acts.pop((s - 1, m))
             h, (lb_i, zl_i) = _run_stage(pp_params, s, h, cfg, positions)
@@ -112,9 +134,10 @@ def _pp_forward_with_aux(pp_params: Dict, cfg, tokens: torch.Tensor,
                 acts[(s, m)] = h
 
     h = torch.cat(outs, dim=0)
-    h = L.apply_norm(pp_params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    h = L.seq_full(L.apply_norm(pp_params["final_norm"], h, cfg.norm,
+                                cfg.norm_eps))
     head = pp_params["embed"] if cfg.tie_embeddings else pp_params["head"]
-    logits = L.apply_unembed(head, h)
+    logits = constrain(L.apply_unembed(head, h), "batch", "seq", "vocab_out")
     inv = 1.0 / num_micro
     return logits, {"moe_lb_loss": lb * inv, "moe_z_loss": zl * inv}
 

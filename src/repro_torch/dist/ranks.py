@@ -267,7 +267,9 @@ class RankComm:
                              f"ranks")
         hit = self._grids.get((data, model))
         if hit is None:
-            kw = dict(timeout=self.timeout, backend="gloo")
+            # the default group's backend: gloo in a pool, fake in a dry
+            # run (launch.dryrun.fake_group)
+            kw = dict(timeout=self.timeout, backend=dist.get_backend())
             dgroup, _ = dist.new_subgroups_by_enumeration(
                 [[i * model + m for i in range(data)] for m in range(model)],
                 **kw)

@@ -10,9 +10,21 @@ import torch
 
 from ..core.kernel_spec import COMPUTE_TILE
 from . import _build
+from ._cost import Cost, costed, nbytes
 from .bodies import compute_step, masked_loop
 
 
+def compute_cost(tiles, iters, max_iters: int) -> Cost:
+    """K1's declared cost: tiles read and written and iters read once; two
+    operations an element a step, ``max_iters`` steps (the most a column
+    runs)."""
+    W = tiles.shape[0]
+    elems = nbytes(tiles) // tiles.dtype.itemsize // max(W, 1)
+    return Cost(0.0, 2 * nbytes(tiles) + nbytes(iters),
+                2.0 * W * elems * max_iters)
+
+
+@costed(compute_cost)
 def taskbench_compute_plain(tiles: torch.Tensor, iters: torch.Tensor,
                             max_iters: int) -> torch.Tensor:
     """The plain PyTorch version: ``max_iters`` keep-masked steps."""
@@ -35,6 +47,7 @@ def _check(tiles: torch.Tensor, iters: torch.Tensor, max_iters: int) -> None:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
 
 
+@costed(compute_cost)
 def taskbench_compute(tiles: torch.Tensor, iters: torch.Tensor,
                       max_iters: int) -> torch.Tensor:
     """(W, 8, 128) f32 tiles after ``min(iters[w], max_iters)`` steps each.

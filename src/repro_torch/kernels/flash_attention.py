@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._cost import Cost, costed, nbytes
 from ._grad import plain_grads
 
 NEG_INF = -1e30
@@ -70,6 +71,32 @@ def check_tma(name: str, ptr: int, strides, dtype: torch.dtype) -> None:
                          f"needs them)")
 
 
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int],
+                    q_offset: int) -> int:
+    """The (query, key) pairs a head attends to: keys up to the query's
+    position when causal, from ``window - 1`` before it with a window."""
+    qpos = q_offset + np.arange(Sq)
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def attention_cost(q, k, v, causal: bool = True,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   scale: Optional[float] = None, block_q: int = 128,
+                   block_k: int = 128) -> Cost:
+    """K5's declared cost: 4 D FLOPs a head for every allowed (query, key)
+    pair (the score and its share of P V), q, k and v read and the output
+    written once; 4 operations a pair and head (scale, running max, exp,
+    row sum)."""
+    B, Sq, Hq, D = q.shape
+    pairs = attention_pairs(Sq, k.shape[1], causal, window, int(q_offset))
+    return Cost(4.0 * D * Hq * B * pairs,
+                2 * nbytes(q) + nbytes(k) + nbytes(v), 4.0 * Hq * B * pairs)
+
+
+@costed(attention_cost)
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
                           q_offset: int = 0, scale: Optional[float] = None,
@@ -133,6 +160,7 @@ def _check(q, k, v, window, q_offset, block_q, block_k) -> None:
                          f"{block_k}")
 
 
+@costed(attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, scale: Optional[float] = None,

@@ -16,6 +16,7 @@ from typing import Union
 import torch
 
 from . import _build
+from ._cost import Cost, costed, data_sum, nbytes
 from .bodies import memory_step
 
 
@@ -26,6 +27,19 @@ def _window_reps(iterations: torch.Tensor, nwin: int) -> torch.Tensor:
     return its // nwin + (w < its % nwin).to(torch.int64)
 
 
+def memory_cost(x, iterations, span: int) -> Cost:
+    """K2's declared cost: the scratch read and written and the counts read
+    once; two operations an element of a window a step, the steps of
+    every row (this run's counts)."""
+    rows = 1 if len(x.shape) == 1 else x.shape[0]
+    if isinstance(iterations, torch.Tensor):
+        steps, counts = data_sum(iterations), nbytes(iterations)
+    else:
+        steps, counts = rows * int(iterations), 0
+    return Cost(0.0, 2 * nbytes(x) + counts, 2.0 * span * steps)
+
+
+@costed(memory_cost)
 def taskbench_memory_plain(x: torch.Tensor,
                            iterations: Union[int, torch.Tensor],
                            span: int) -> torch.Tensor:
@@ -68,6 +82,7 @@ def _check(x: torch.Tensor, iterations, span: int) -> None:
         raise ValueError(f"iterations on {iterations.device}, x on {x.device}")
 
 
+@costed(memory_cost)
 def taskbench_memory(x: torch.Tensor, iterations: Union[int, torch.Tensor],
                      span: int) -> torch.Tensor:
     """The scratch after the window walk (out of place).

@@ -6,6 +6,8 @@
     and its plain version on a CPU tensor;
   - "plain": the plain version, asked for by name;
   - "ref": the oracles of ``ref``.
+On DTensors (under ``dist.sharding``'s rules) each rank runs the chosen
+path on its local shards (``kernels.sharded``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from . import flash_attention as _fa
 from . import ref as _ref
+from . import sharded as _sharded
 from . import ssd as _ssd
 
 IMPLS = ("auto", "plain", "ref")
@@ -42,6 +45,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     path, on K5 (or its plain version).
     """
     _check_impl(impl)
+    if _sharded.is_dtensor(q, k, v):
+        return _sharded.attention(
+            lambda *a: attention(*a[:3], causal=causal, window=window,
+                                 q_offset=a[3], kv_positions=a[4],
+                                 scale=scale, impl=impl, block_q=block_q,
+                                 block_k=block_k),
+            q, k, v, q_offset, kv_positions)
     if kv_positions is not None or not isinstance(q_offset, int):
         impl = "ref"
     if impl == "ref":
@@ -67,6 +77,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     exact.
     """
     _check_impl(impl)
+    if _sharded.is_dtensor(x, dt, A, Bm, Cm, D):
+        return _sharded.ssd(
+            lambda *a: ssd(*a, chunk=chunk, impl=impl), x, dt, A, Bm, Cm, D)
     S = x.shape[1]
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -93,4 +106,8 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token state update (the serving path), O(state): one step of
     ``ssd_ref`` from the carried state h (B, H, P, N)."""
+    if _sharded.is_dtensor(x, dt, A, Bm, Cm, h, D):
+        return _sharded.ssd(
+            lambda x_, dt_, A_, B_, C_, D_, h_: ssd_decode_step(
+                x_, dt_, A_, B_, C_, h_, D_), x, dt, A, Bm, Cm, D, h)
     return _ref.ssd_ref(x, dt, A, Bm, Cm, D, h0=h, return_state=True)

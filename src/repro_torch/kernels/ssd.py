@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._cost import Cost, costed, nbytes
 from ._grad import plain_grads
 
 MAX_CHUNK = 128
@@ -48,6 +49,23 @@ def _with_skip(y: torch.Tensor, x: torch.Tensor,
     return (y.float() + x.float() * D.float()[None, None, :, None]).to(x.dtype)
 
 
+def ssd_cost(x, dt, A, Bm, Cm, D=None, chunk: int = MAX_CHUNK) -> Cost:
+    """K6's declared cost: the causal half of the score and intra-chunk
+    products, the inter-chunk and state products; x, dt, A, B, C (and D)
+    read and y and the float32 state written once; two operations (the
+    decay's exp and the mask) a causal score."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    chunk = min(int(chunk), S)
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    flops = Bsz * H * nc * (2 * tri * (N + P) + 4 * chunk * N * P)
+    state = Bsz * H * P * N * 4
+    ins = sum(nbytes(t) for t in (x, dt, A, Bm, Cm, D))
+    return Cost(float(flops), ins + nbytes(x) + state,
+                2.0 * Bsz * H * nc * tri)
+
+
+@costed(ssd_cost)
 def ssd_chunked_plain(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
                       chunk: int = MAX_CHUNK
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,6 +148,7 @@ def uses_tensor_cores(x: torch.Tensor, Bm: torch.Tensor) -> bool:
             and x.shape[3] <= TC_MAX_P and Bm.shape[3] <= TC_MAX_N)
 
 
+@costed(ssd_cost)
 def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
                 chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the SSD chunked forward from a zero state.

@@ -209,3 +209,30 @@ def write_prompt(caches: Caches, slot: int, prefill: Caches) -> Caches:
     for c, p in zip(caches, prefill):
         _write_layer(c, p, slot, stacked=False)
     return caches
+
+
+def cache_logical_axes(cache: LayerCache) -> LayerCache:
+    """Logical sharding axes of each of a layer cache's tensors, in a
+    ``LayerCache`` of the same kind (the cursors' axes are ``()``)."""
+    kind = cache.kind
+    if kind in ("full", "ring"):
+        return LayerCache(
+            kind=kind,
+            k=("batch", "kv_seq", "kv_heads_act", None),
+            v=("batch", "kv_seq", "kv_heads_act", None),
+            pos=(),
+        )
+    if kind == "ssm":
+        return LayerCache(
+            kind=kind,
+            conv_x=("batch", None, "ssm_inner"),
+            conv_bc=("batch", None, None),
+            state=("batch", "ssm_heads", None, None),
+        )
+    if kind == "rglru":
+        return LayerCache(
+            kind=kind,
+            conv=("batch", None, "lru"),
+            h=("batch", "lru"),
+        )
+    raise ValueError(kind)

@@ -3,8 +3,11 @@
 The port of ``repro.models.layers``: norms, the embedding and the tied or
 dedicated unembedding, the matmul convention and the init helpers, RoPE,
 GQA attention over every cache kind, and the MLP.  Parameters are nested
-dicts of tensors with the reference's keys and layouts (no logical-axis
-names: the port does not shard yet).
+dicts of tensors with the reference's keys and layouts.  With
+``leaves=True`` an ``init_*`` returns ``Leaf(tensor, axes)`` instead of each
+tensor: the tensor and the reference's logical-axis names, which
+``split_leaves`` splits into a parameter tree and an axes tree (the axes
+drive ``dist.sharding``; a stacked weight's lead with ``"layers"``).
 
 All matmuls run in the parameter dtype with float32 accumulation (no TF32,
 no reduced-precision bf16 reductions: ``repro_torch`` turns both off);
@@ -12,13 +15,16 @@ norms, RoPE and softmax in float32.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain, write_
 from ..kernels import ops
+from ..kernels.sharded import is_dtensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -32,6 +38,40 @@ def dtype_of(cfg) -> torch.dtype:
                          f"{sorted(DTYPES)}") from None
 
 
+@dataclasses.dataclass
+class Leaf:
+    value: Any
+    axes: Tuple[Optional[str], ...]
+
+
+def is_leaf(x) -> bool:
+    return isinstance(x, Leaf)
+
+
+def _split(tree, part: str):
+    if isinstance(tree, Leaf):
+        return getattr(tree, part)
+    if isinstance(tree, dict):
+        return {k: _split(v, part) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_split(v, part) for v in tree)
+    return tree
+
+
+def split_leaves(tree):
+    """Leaf tree -> (parameter tree, logical-axes tree)."""
+    return _split(tree, "value"), _split(tree, "axes")
+
+
+def leaf(value: torch.Tensor, axes: Tuple[Optional[str], ...],
+         layers: Optional[int] = None, leaves: bool = True):
+    """``value``, or with ``leaves`` its ``Leaf``; a weight stacked on a
+    leading layer dim gets ``"layers"`` in front of its axes."""
+    if not leaves:
+        return value
+    return Leaf(value, axes if layers is None else ("layers",) + tuple(axes))
+
+
 _DRAW = 1 << 28  # float32 elements ``_dense_init`` draws at once
 
 
@@ -43,8 +83,11 @@ def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
     the float32 draw of a stacked weight (32 layers of Qwen2-72B's MLP: 31
     GB) never sits beside its cast; where one slice of the leading dim is
     still larger (a layer of Arctic's experts: 4.5G elements), of its
-    leading dims merged until a slice fits."""
+    leading dims merged until a slice fits.  On the meta device nothing is
+    drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     lead = 0  # leading dims merged into the sliced one
     while lead < len(shape) - 1 and int(np.prod(shape[lead:])) > _DRAW:
         lead += 1
@@ -59,6 +102,15 @@ def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
     return out
 
 
+def seq_full(x: torch.Tensor) -> torch.Tensor:
+    """A normed residual ``(B, S, d)`` with the whole sequence on every
+    rank, the layout of a matmul's input under sharding rules (identity
+    outside them).  The matmul flattens (B, S) into rows, and DTensor
+    cannot lay out those rows when both dims are sharded; the reference's
+    partitioner gathers the sequence at the same point."""
+    return constrain(x, "batch", "seq_full", None)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            ndim_contract: int = 1) -> torch.Tensor:
     """x @ w over the last ``ndim_contract`` dims of x and the first of w,
@@ -68,17 +120,61 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
         return torch.matmul(x, w).to(x.dtype)
     lead, inner = x.shape[:x.ndim - ndim_contract], w.shape[:ndim_contract]
     out = w.shape[ndim_contract:]
-    y = torch.matmul(x.reshape(*lead, -1), w.reshape(int(np.prod(inner)), -1))
+    x2 = _splittable(x.reshape(*lead, -1), -1, inner[0])
+    w2 = _splittable(w.reshape(int(np.prod(inner)), -1), 0, inner[0])
+    y = _splittable(torch.matmul(x2, _splittable(w2, -1, out[0])), -1,
+                    out[0])
     return y.reshape(*lead, *out).to(x.dtype)
+
+
+def _split_layout(t, dim: int, first: int):
+    """A DTensor laid out so that its dim ``dim`` splits into (first, ...):
+    the ranks sharding that dim must divide ``first``; the others gather
+    it."""
+    from torch.distributed.tensor import Replicate
+
+    dim %= t.ndim
+    mesh, place, n = t.device_mesh, list(t.placements), 1
+    for i, p in enumerate(place):
+        if p.is_shard(dim):
+            if first % (n * mesh.size(i)):
+                place[i] = Replicate()
+            else:
+                n *= mesh.size(i)
+    return t if place == list(t.placements) else t.redistribute(mesh, place)
+
+
+class _Splittable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, first):
+        ctx.dims = (dim, first)
+        return _split_layout(t, dim, first)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _split_layout(grad, *ctx.dims), None, None
+
+
+def _splittable(t: torch.Tensor, dim: int, first: int) -> torch.Tensor:
+    """``t``, whose dim ``dim`` is merged from or about to split into
+    ``(first, ...)`` (a matmul's flattened operand or product); on a
+    DTensor sharded there over more ranks than divide ``first`` (GQA's few
+    kv heads on a wide ``model`` axis) that dim is gathered first, in the
+    forward and in the backward pass.  Identity on plain tensors."""
+    if not is_dtensor(t):
+        return t
+    return _Splittable.apply(t, dim, first)
 
 
 # ---------------------------------------------------------------- norms
 def init_norm(d: int, dtype, kind: str = "rms", device=None,
-              layers: Optional[int] = None) -> Dict:
+              layers: Optional[int] = None, leaves: bool = False) -> Dict:
     lead = () if layers is None else (layers,)
-    p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    p = {"scale": leaf(torch.ones(lead + (d,), dtype=dtype, device=device),
+                       ("embed2",), layers, leaves)}
     if kind == "layer":
-        p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+        p["bias"] = leaf(torch.zeros(lead + (d,), dtype=dtype, device=device),
+                         ("embed2",), layers, leaves)
     return p
 
 
@@ -98,10 +194,14 @@ def apply_norm(p: Dict, x: torch.Tensor, kind: str = "rms",
 
 # ------------------------------------------------------------ embeddings
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
-                   device) -> Dict:
-    emb = torch.empty(vocab, d, dtype=torch.float32, device=device)
-    emb.normal_(generator=gen)
-    return {"table": (emb / np.sqrt(d)).to(dtype)}
+                   device, leaves: bool = False) -> Dict:
+    if torch.device(device).type == "meta":
+        table = torch.empty(vocab, d, dtype=dtype, device=device)
+    else:
+        emb = torch.empty(vocab, d, dtype=torch.float32, device=device)
+        emb.normal_(generator=gen)
+        table = (emb / np.sqrt(d)).to(dtype)
+    return {"table": leaf(table, ("vocab", "embed"), None, leaves)}
 
 
 def apply_embedding(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -139,22 +239,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # -------------------------------------------------------------- attention
 def init_attention(gen: torch.Generator, cfg, dtype, device,
-                   layers: Optional[int] = None) -> Dict:
+                   layers: Optional[int] = None, leaves: bool = False) -> Dict:
     """One attention layer's parameters, or ``layers`` stacked on a leading
     dim: wq (d, H, Dh), wk and wv (d, Hkv, Dh), wo (H, Dh, d), and zero
     q/k/v biases when ``cfg.qkv_bias``."""
     d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = () if layers is None else (layers,)
+
+    def dense(shape, fan_in, axes):
+        return leaf(_dense_init(gen, lead + shape, fan_in, dtype, device),
+                    axes, layers, leaves)
+
+    def zeros(shape, axes):
+        return leaf(torch.zeros(lead + shape, dtype=dtype, device=device),
+                    axes, layers, leaves)
+
     p = {
-        "wq": _dense_init(gen, lead + (d, H, Dh), d, dtype, device),
-        "wk": _dense_init(gen, lead + (d, Hkv, Dh), d, dtype, device),
-        "wv": _dense_init(gen, lead + (d, Hkv, Dh), d, dtype, device),
-        "wo": _dense_init(gen, lead + (H, Dh, d), H * Dh, dtype, device),
+        "wq": dense((d, H, Dh), d, ("embed", "heads", "head_dim")),
+        "wk": dense((d, Hkv, Dh), d, ("embed", "kv_heads", "head_dim")),
+        "wv": dense((d, Hkv, Dh), d, ("embed", "kv_heads", "head_dim")),
+        "wo": dense((H, Dh, d), H * Dh, ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros(lead + (H, Dh), dtype=dtype, device=device)
-        p["bk"] = torch.zeros(lead + (Hkv, Dh), dtype=dtype, device=device)
-        p["bv"] = torch.zeros(lead + (Hkv, Dh), dtype=dtype, device=device)
+        p["bq"] = zeros((H, Dh), ("heads", "head_dim"))
+        p["bk"] = zeros((Hkv, Dh), ("kv_heads", "head_dim"))
+        p["bv"] = zeros((Hkv, Dh), ("kv_heads", "head_dim"))
     return p
 
 
@@ -203,6 +312,11 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         v = v + p["bv"]
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    q = constrain(q, "batch", "seq_full", "act_heads", None)
+    k = constrain(k, "batch", "seq_full", "kv_heads_act", None)
+
+    def kv_layout(t):
+        return constrain(t, "batch", "kv_seq", "kv_heads_act", None)
 
     start = cache.start if cache is not None else None
 
@@ -230,18 +344,20 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         pos = cache.pos  # (B,): rows already cached per slot
         _write_rows(cache.k, pos, k[:, 0])
         _write_rows(cache.v, pos, v[:, 0])
-        out = attend(cache.k, cache.v, True, *offsets(pos, cache.k.shape[1]))
+        out = attend(kv_layout(cache.k), kv_layout(cache.v), True,
+                     *offsets(pos, cache.k.shape[1]))
         cache.pos.add_(1)
     elif cache.kind == "full":
         L = cache.k.shape[1]
         pos = cache.pos  # 0-d: tokens already cached
         # dynamic_update_slice clamps its start so the S rows fit
         rows = pos.clamp(0, max(L - S, 0)) + torch.arange(S, device=x.device)
-        cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
-        cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
+        write_(cache.k, "index_copy_", 1, rows, k.to(cache.k.dtype))
+        write_(cache.v, "index_copy_", 1, rows, v.to(cache.v.dtype))
         # rows past pos + S - 1 are zero or stale; the causal mask at
         # q_offset = pos never reads them
-        out = attend(cache.k, cache.v, True, *offsets(pos, L))
+        out = attend(kv_layout(cache.k), kv_layout(cache.v), True,
+                     *offsets(pos, L))
         cache.pos.add_(S)
     elif cache.kind == "ring" and S > 1:
         W = cache.k.shape[1]
@@ -268,37 +384,48 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
             rows = pos[:, None] - ((pos[:, None] - slots[None, :]) % W)
         else:
             at = (pos % W).reshape(1)
-            cache.k.index_copy_(1, at, k.to(cache.k.dtype))
-            cache.v.index_copy_(1, at, v.to(cache.v.dtype))
+            write_(cache.k, "index_copy_", 1, at, k.to(cache.k.dtype))
+            write_(cache.v, "index_copy_", 1, at, v.to(cache.v.dtype))
             # slot s holds the largest position p <= pos with p % W == s
             rows = pos - ((pos - slots) % W)  # in (pos - W, pos]
         q_off = pos if start is None else pos - start
         kv_pos = rows if start is None else (
             (rows if rows.ndim == 2 else rows[None, :]) - start[:, None])
-        out = attend(cache.k, cache.v, True, q_off, kv_pos)
+        out = attend(kv_layout(cache.k), kv_layout(cache.v), True, q_off,
+                     kv_pos)
         cache.pos.add_(1)
     else:
         raise ValueError(cache.kind)
-    return matmul(out, p["wo"], 2)
+    out = constrain(out, "batch", "seq_full", "act_heads", None)
+    return constrain(matmul(out, p["wo"], 2), "batch", "seq", None)
 
 
 # -------------------------------------------------------------------- MLP
 def init_mlp(gen: torch.Generator, cfg, dtype, device,
              layers: Optional[int] = None,
-             d_ff: Optional[int] = None) -> Dict:
+             d_ff: Optional[int] = None, leaves: bool = False) -> Dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     lead = () if layers is None else (layers,)
+
+    def dense(shape, fan_in, axes):
+        return leaf(_dense_init(gen, lead + shape, fan_in, dtype, device),
+                    axes, layers, leaves)
+
+    def zeros(shape, axes):
+        return leaf(torch.zeros(lead + shape, dtype=dtype, device=device),
+                    axes, layers, leaves)
+
     if cfg.mlp_gated:
         return {
-            "wi_gate": _dense_init(gen, lead + (d, f), d, dtype, device),
-            "wi_up": _dense_init(gen, lead + (d, f), d, dtype, device),
-            "wo": _dense_init(gen, lead + (f, d), f, dtype, device),
+            "wi_gate": dense((d, f), d, ("embed", "ffn")),
+            "wi_up": dense((d, f), d, ("embed", "ffn")),
+            "wo": dense((f, d), f, ("ffn", "embed")),
         }
     return {
-        "wi": _dense_init(gen, lead + (d, f), d, dtype, device),
-        "bi": torch.zeros(lead + (f,), dtype=dtype, device=device),
-        "wo": _dense_init(gen, lead + (f, d), f, dtype, device),
-        "bo": torch.zeros(lead + (d,), dtype=dtype, device=device),
+        "wi": dense((d, f), d, ("embed", "ffn")),
+        "bi": zeros((f,), ("ffn",)),
+        "wo": dense((f, d), f, ("ffn", "embed")),
+        "bo": zeros((d,), ("embed2",)),
     }
 
 
@@ -313,6 +440,8 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if "wi_gate" in p:
         h = _act(cfg.act, matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
-        return matmul(h, p["wo"])
+        h = constrain(h, "batch", "seq_full", "act_ffn")
+        return constrain(matmul(h, p["wo"]), "batch", "seq", None)
     h = _act(cfg.act, matmul(x, p["wi"]) + p["bi"])
-    return matmul(h, p["wo"]) + p["bo"]
+    h = constrain(h, "batch", "seq_full", "act_ffn")
+    return constrain(matmul(h, p["wo"]), "batch", "seq", None) + p["bo"]

@@ -35,6 +35,7 @@ from torch.utils import checkpoint as ckpt
 
 from .. import tree as T
 from ..backends.base import resolve_device
+from ..dist.sharding import constrain
 from . import layers as L
 from .cache import LayerCache, unstack_caches
 from .moe import apply_moe, init_moe
@@ -74,62 +75,86 @@ def _generator(generator, device: torch.device) -> Optional[torch.Generator]:
 
 
 def init_block(gen, kind: str, cfg, dtype, device,
-               layers: Optional[int] = None) -> Dict:
-    """One block's parameters, or ``layers`` blocks stacked."""
+               layers: Optional[int] = None, leaves: bool = False) -> Dict:
+    """One block's parameters, or ``layers`` blocks stacked; with
+    ``leaves``, as ``layers.Leaf``s (each tensor with its logical axes)."""
     d = cfg.d_model
+    kw = dict(leaves=leaves)
+
+    def norm():
+        return L.init_norm(d, dtype, cfg.norm, device, layers, **kw)
+
     if kind in ("attn", "local_attn"):
         return {
-            "norm1": L.init_norm(d, dtype, cfg.norm, device, layers),
-            "attn": L.init_attention(gen, cfg, dtype, device, layers),
-            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
-            "mlp": L.init_mlp(gen, cfg, dtype, device, layers),
+            "norm1": norm(),
+            "attn": L.init_attention(gen, cfg, dtype, device, layers, **kw),
+            "norm2": norm(),
+            "mlp": L.init_mlp(gen, cfg, dtype, device, layers, **kw),
         }
     if kind == "moe":
         p = {
-            "norm1": L.init_norm(d, dtype, cfg.norm, device, layers),
-            "attn": L.init_attention(gen, cfg, dtype, device, layers),
-            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
-            "moe": init_moe(gen, cfg, dtype, device, layers),
+            "norm1": norm(),
+            "attn": L.init_attention(gen, cfg, dtype, device, layers, **kw),
+            "norm2": norm(),
+            "moe": init_moe(gen, cfg, dtype, device, layers, **kw),
         }
         if cfg.dense_residual_ff:
             p["mlp"] = L.init_mlp(gen, cfg, dtype, device, layers,
-                                  d_ff=cfg.dense_residual_ff)
+                                  d_ff=cfg.dense_residual_ff, **kw)
         return p
     if kind == "ssd":
-        return {"ssd": init_ssd_block(gen, cfg, dtype, device, layers)}
+        return {"ssd": init_ssd_block(gen, cfg, dtype, device, layers, **kw)}
     if kind == "rglru":
         return {
-            "rec": init_rglru_block(gen, cfg, dtype, device, layers),
-            "norm2": L.init_norm(d, dtype, cfg.norm, device, layers),
-            "mlp": L.init_mlp(gen, cfg, dtype, device, layers),
+            "rec": init_rglru_block(gen, cfg, dtype, device, layers, **kw),
+            "norm2": norm(),
+            "mlp": L.init_mlp(gen, cfg, dtype, device, layers, **kw),
         }
     raise ValueError(kind)
+
+
+def _init_tree(cfg, generator, device, leaves: bool) -> Dict:
+    check_supported(cfg)
+    device = resolve_device(device)
+    gen = _generator(generator, device)
+    dt = L.dtype_of(cfg)
+    kw = dict(leaves=leaves)
+    tree: Dict = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
+                                  device, **kw),
+        "final_norm": L.init_norm(cfg.d_model, dt, cfg.norm, device, **kw),
+    }
+    if not cfg.tie_embeddings:
+        tree["head"] = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
+                                        device, **kw)
+    pattern = cfg.pattern_for_depth()
+    if scanned(cfg):
+        tree["blocks_scanned"] = init_block(gen, pattern[0], cfg, dt, device,
+                                            layers=cfg.num_layers, **kw)
+    else:
+        tree["blocks"] = [init_block(gen, kind, cfg, dt, device, **kw)
+                          for kind in pattern]
+    return tree
 
 
 def init_model(cfg, generator: Union[torch.Generator, int] = 0,
                device=None) -> Dict:
     """Random parameters from ``generator`` (or a seed) on ``device``
     (``cuda`` unless the caller asks for the CPU)."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    gen = _generator(generator, device)
-    dt = L.dtype_of(cfg)
-    tree: Dict = {
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
-                                  device),
-        "final_norm": L.init_norm(cfg.d_model, dt, cfg.norm, device),
-    }
-    if not cfg.tie_embeddings:
-        tree["head"] = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
-                                        device)
-    pattern = cfg.pattern_for_depth()
-    if scanned(cfg):
-        tree["blocks_scanned"] = init_block(gen, pattern[0], cfg, dt, device,
-                                            layers=cfg.num_layers)
-    else:
-        tree["blocks"] = [init_block(gen, kind, cfg, dt, device)
-                          for kind in pattern]
-    return tree
+    return _init_tree(cfg, generator, device, leaves=False)
+
+
+def init_model_leaves(cfg, generator: Union[torch.Generator, int] = 0,
+                      device=None) -> Dict:
+    """``init_model`` as a ``layers.Leaf`` tree: each parameter with its
+    logical axes (the reference's ``init_model``)."""
+    return _init_tree(cfg, generator, device, leaves=True)
+
+
+def model_spec(cfg):
+    """(params on the meta device, logical-axes tree): shapes and dtypes
+    only, nothing allocated and nothing drawn (the dry run's path)."""
+    return L.split_leaves(init_model_leaves(cfg, None, "meta"))
 
 
 def _index(tree, i: int):
@@ -159,12 +184,13 @@ def _block(p: Dict, kind: str, x: torch.Tensor, cfg, positions: torch.Tensor,
     """``apply_block`` and the MoE block's aux losses: (x', new, (lb, z)),
     the losses None for any other block."""
     new, aux = None, None
+    x = constrain(x, "batch", "seq", None)
     if kind in ("attn", "local_attn", "moe"):
         window = cfg.local_window if kind == "local_attn" else cfg.window
-        h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+        h = L.seq_full(L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps))
         x = x + L.apply_attention(p["attn"], h, cfg, positions, window=window,
                                   cache=cache, kernel_impl=cfg.kernel_impl)
-        h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+        h = L.seq_full(L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps))
         if kind == "moe":
             m, metrics = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl)
             aux = (metrics["moe_lb_loss"], metrics["moe_z_loss"])
@@ -180,11 +206,11 @@ def _block(p: Dict, kind: str, x: torch.Tensor, cfg, positions: torch.Tensor,
     elif kind == "rglru":
         a, new = apply_rglru_block(p["rec"], x, cfg, cache=cache)
         x = x + a
-        h = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+        h = L.seq_full(L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps))
         x = x + L.apply_mlp(p["mlp"], h, cfg)
     else:
         raise ValueError(kind)
-    return x, new, aux
+    return constrain(x, "batch", "seq", None), new, aux
 
 
 def _selective_contexts():
@@ -253,6 +279,7 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
     else:
         h = L.apply_embedding(params["embed"], tokens)
         B, S = tokens.shape
+    h = constrain(h, "batch", "seq", None)
     steps = torch.arange(S, device=h.device)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos.to(h.device)[:, None] + steps[None, :]
@@ -278,9 +305,10 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
             lb, zl = lb + aux[0], zl + aux[1]
     if last_token_only:
         h = h[:, -1:, :]
-    h = L.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    h = L.seq_full(L.apply_norm(params["final_norm"], h, cfg.norm,
+                                cfg.norm_eps))
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = L.apply_unembed(head, h)
+    logits = constrain(L.apply_unembed(head, h), "batch", "seq", "vocab_out")
     if return_aux:
         return logits, caches, {"moe_lb_loss": lb, "moe_z_loss": zl}
     return logits, caches

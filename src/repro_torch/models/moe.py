@@ -58,7 +58,8 @@ import torch
 
 from .. import tree as T
 from ..dist.collectives import TokenA2APlan, dispatch_capacity
-from .layers import _act, _dense_init, dtype_of
+from ..dist.sharding import constrain
+from .layers import _act, _dense_init, dtype_of, leaf
 
 EP_MODES = ("replicated", "sp")
 IMPLS = ("auto", "dense", "a2a")
@@ -76,18 +77,27 @@ def virtual_experts(num_experts: int, d_ff: int) -> Tuple[int, int, int]:
     return num_experts * sub, d_ff // sub, sub
 
 
-def init_moe(gen, cfg, dtype, device, layers: Optional[int] = None) -> Dict:
+def init_moe(gen, cfg, dtype, device, layers: Optional[int] = None,
+             leaves: bool = False) -> Dict:
     """The float32 router ``(d, E)`` and the expert weights stored as
     ``E_v`` virtual experts: ``w_gate``/``w_up`` ``(E_v, d, f_v)``,
     ``w_down`` ``(E_v, f_v, d)`` (a leading layer dim with ``layers``)."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     E_v, f_v, _ = virtual_experts(E, f)
     lead = () if layers is None else (layers,)
+
+    def dense(shape, fan_in, dt, axes):
+        return leaf(_dense_init(gen, lead + shape, fan_in, dt, device),
+                    axes, layers, leaves)
+
     return {
-        "router": _dense_init(gen, lead + (d, E), d, torch.float32, device),
-        "w_gate": _dense_init(gen, lead + (E_v, d, f_v), d, dtype, device),
-        "w_up": _dense_init(gen, lead + (E_v, d, f_v), d, dtype, device),
-        "w_down": _dense_init(gen, lead + (E_v, f_v, d), f, dtype, device),
+        "router": dense((d, E), d, torch.float32, (None, None)),
+        "w_gate": dense((E_v, d, f_v), d, dtype,
+                        ("expert", "expert_embed", "expert_ffn")),
+        "w_up": dense((E_v, d, f_v), d, dtype,
+                      ("expert", "expert_embed", "expert_ffn")),
+        "w_down": dense((E_v, f_v, d), f, dtype,
+                        ("expert", "expert_ffn", "expert_embed")),
     }
 
 
@@ -201,9 +211,10 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, impl: str = "auto",
 # ------------------------------------------------------------- dense path
 def _moe_dense(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict]:
     B, S, d = x.shape
+    x = constrain(x, "batch", "seq_full", None)
     y, lb, z = _dense_mix(p, x.reshape(B * S, d), cfg)
-    return (y.reshape(B, S, d).to(x.dtype),
-            {"moe_lb_loss": lb, "moe_z_loss": z})
+    y = constrain(y.reshape(B, S, d).to(x.dtype), "batch", "seq", None)
+    return y, {"moe_lb_loss": lb, "moe_z_loss": z}
 
 
 def _dense_mix(p: Dict, x2: torch.Tensor, cfg):
@@ -418,6 +429,25 @@ def _rank_a2a(ctx, job: int, x: torch.Tensor, cfg, data: int, model: int,
             {"data": dict(comms.data.stats), "model": dict(comms.model.stats)})
 
 
+def rank_blocks(B: int, S: int, data: int, model: int, ep_mode: str):
+    """(sp, batch split, block(r)): whether the sp mode runs, over how many
+    data ranks the batch splits, and rank r's (batch, sequence) slices of
+    x.  The divisibility fallbacks: sp needs the sequence to shard over
+    model, and the batch stays whole on every data rank unless it
+    shards."""
+    sp = ep_mode == "sp" and S % model == 0
+    b_split = data if B % data == 0 else 1
+    b_loc, s_loc = B // b_split, (S // model if sp else S)
+
+    def block(r: int):
+        di, mi = divmod(r, model)
+        bi, si = (di if b_split > 1 else 0), (mi if sp else 0)
+        return (slice(bi * b_loc, (bi + 1) * b_loc),
+                slice(si * s_loc, (si + 1) * s_loc))
+
+    return sp, b_split, block
+
+
 def _moe_a2a(p: Dict, x: torch.Tensor, cfg, grid: ExpertGrid,
              ep_mode: str) -> Tuple[torch.Tensor, Dict]:
     """The controller's half: hand each rank its slice of x (batch over
@@ -431,18 +461,7 @@ def _moe_a2a(p: Dict, x: torch.Tensor, cfg, grid: ExpertGrid,
                          "(another seed, or weights changed since the grid "
                          "was built): its ranks would compute with theirs")
     B, S, d = x.shape
-    # the divisibility fallbacks: sp needs the sequence to shard over
-    # model, and the batch stays whole on every data rank unless it shards
-    sp = ep_mode == "sp" and S % grid.model == 0
-    b_split = grid.data if B % grid.data == 0 else 1
-    b_loc, s_loc = B // b_split, (S // grid.model if sp else S)
-
-    def block(r: int):
-        di, mi = grid.coords(r)
-        bi, si = (di if b_split > 1 else 0), (mi if sp else 0)
-        return (slice(bi * b_loc, (bi + 1) * b_loc),
-                slice(si * s_loc, (si + 1) * s_loc))
-
+    sp, b_split, block = rank_blocks(B, S, grid.data, grid.model, ep_mode)
     ranks = range(grid.pool.ranks)
     res = grid.pool.map(_rank_a2a, [
         (grid.job, x[block(r)].detach().cpu().clone(), cfg, grid.data, grid.model,

@@ -22,14 +22,17 @@ import torch
 import torch.nn.functional as F
 
 from .cache import LayerCache
-from .layers import _dense_init, apply_norm, init_norm, matmul
+from ..dist.sharding import constrain
+from .layers import (_dense_init, apply_norm, init_norm, leaf, matmul,
+                     seq_full)
 from .ssm import _causal_conv, _conv_step
 
 _C = 8.0
 
 
 def init_rglru_block(gen: torch.Generator, cfg, dtype, device,
-                     layers: Optional[int] = None) -> Dict:
+                     layers: Optional[int] = None,
+                     leaves: bool = False) -> Dict:
     """One block's parameters, or ``layers`` blocks stacked on a leading
     dim; the reference's distributions, drawn from ``gen``.  The gate
     biases and lam are float32, as in the reference."""
@@ -37,8 +40,12 @@ def init_rglru_block(gen: torch.Generator, cfg, dtype, device,
     w = cfg.lru_width or d
     lead = () if layers is None else (layers,)
 
-    def dense(shape, fan_in):
-        return _dense_init(gen, lead + shape, fan_in, dtype, device)
+    def dense(shape, fan_in, axes):
+        return leaf(_dense_init(gen, lead + shape, fan_in, dtype, device),
+                    axes, layers, leaves)
+
+    def named(value, axes):
+        return leaf(value, axes, layers, leaves)
 
     # lam so that a^c is in [0.9, 0.999] (paper section 2.4)
     u = torch.empty(lead + (w,), dtype=torch.float32, device=device)
@@ -46,16 +53,17 @@ def init_rglru_block(gen: torch.Generator, cfg, dtype, device,
     lam = torch.log(torch.expm1(-torch.log(u) / (2 * _C)))  # softplus^-1
     zeros = torch.zeros(lead + (w,), dtype=torch.float32, device=device)
     return {
-        "norm": init_norm(d, dtype, cfg.norm, device, layers),
-        "w_gate": dense((d, w), d),
-        "w_x": dense((d, w), d),
-        "conv": dense((cfg.conv1d_width, w), cfg.conv1d_width),
-        "w_a": dense((w, w), w),
-        "b_a": zeros,
-        "w_i": dense((w, w), w),
-        "b_i": zeros.clone(),
-        "lam": lam,
-        "w_out": dense((w, d), w),
+        "norm": init_norm(d, dtype, cfg.norm, device, layers, leaves=leaves),
+        "w_gate": dense((d, w), d, ("embed", "lru")),
+        "w_x": dense((d, w), d, ("embed", "lru")),
+        "conv": dense((cfg.conv1d_width, w), cfg.conv1d_width,
+                      ("conv_k", "lru")),
+        "w_a": dense((w, w), w, ("lru", "lru")),
+        "b_a": named(zeros, ("lru",)),
+        "w_i": dense((w, w), w, ("lru", "lru")),
+        "b_i": named(zeros.clone(), ("lru",)),
+        "lam": named(lam, ("lru",)),
+        "w_out": dense((w, d), w, ("lru", "embed")),
     }
 
 
@@ -97,9 +105,10 @@ def apply_rglru_block(p: Dict, x: torch.Tensor, cfg,
     reference's layout does).
     """
     S = x.shape[1]
-    xn = apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps)
+    xn = seq_full(apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps))
     gate = F.gelu(matmul(xn, p["w_gate"]).float(), approximate="tanh")
     u = matmul(xn, p["w_x"])
+    u = constrain(u, "batch", "seq_full", "lru")
 
     new = None
     if cache is not None and S == 1:

@@ -22,7 +22,9 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .cache import LayerCache
-from .layers import _dense_init, apply_norm, init_norm, matmul
+from ..dist.sharding import constrain
+from .layers import (_dense_init, apply_norm, init_norm, leaf, matmul,
+                     seq_full)
 
 
 def _dims(cfg):
@@ -32,15 +34,19 @@ def _dims(cfg):
 
 
 def init_ssd_block(gen: torch.Generator, cfg, dtype, device,
-                   layers: Optional[int] = None) -> Dict:
+                   layers: Optional[int] = None, leaves: bool = False) -> Dict:
     """One block's parameters, or ``layers`` blocks stacked on a leading
     dim; the reference's distributions, drawn from ``gen``."""
     d = cfg.d_model
     d_in, H, G, N = _dims(cfg)
     lead = () if layers is None else (layers,)
 
-    def dense(shape, fan_in):
-        return _dense_init(gen, lead + shape, fan_in, dtype, device)
+    def dense(shape, fan_in, axes):
+        return leaf(_dense_init(gen, lead + shape, fan_in, dtype, device),
+                    axes, layers, leaves)
+
+    def named(value, axes):
+        return leaf(value, axes, layers, leaves)
 
     def uniform(lo, hi):
         u = torch.empty(lead + (H,), dtype=torch.float32, device=device)
@@ -51,18 +57,22 @@ def init_ssd_block(gen: torch.Generator, cfg, dtype, device,
     dt0 = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     return {
-        "norm": init_norm(d, dtype, cfg.norm, device, layers),
-        "wz": dense((d, d_in), d),
-        "wx": dense((d, d_in), d),
-        "wbc": dense((d, 2 * G * N), d),
-        "wdt": dense((d, H), d),
-        "conv_x": dense((cfg.ssm_conv, d_in), cfg.ssm_conv),
-        "conv_bc": dense((cfg.ssm_conv, 2 * G * N), cfg.ssm_conv),
-        "dt_bias": dt_bias,
-        "A_log": torch.log(uniform(1.0, 16.0)),
-        "D": torch.ones(lead + (H,), dtype=torch.float32, device=device),
-        "gnorm": torch.ones(lead + (d_in,), dtype=dtype, device=device),
-        "wo": dense((d_in, d), d_in),
+        "norm": init_norm(d, dtype, cfg.norm, device, layers, leaves=leaves),
+        "wz": dense((d, d_in), d, ("embed", "ssm_inner")),
+        "wx": dense((d, d_in), d, ("embed", "ssm_inner")),
+        "wbc": dense((d, 2 * G * N), d, ("embed", None)),
+        "wdt": dense((d, H), d, ("embed", "ssm_heads")),
+        "conv_x": dense((cfg.ssm_conv, d_in), cfg.ssm_conv,
+                        ("conv_k", "ssm_inner")),
+        "conv_bc": dense((cfg.ssm_conv, 2 * G * N), cfg.ssm_conv,
+                         ("conv_k", None)),
+        "dt_bias": named(dt_bias, ("ssm_heads",)),
+        "A_log": named(torch.log(uniform(1.0, 16.0)), ("ssm_heads",)),
+        "D": named(torch.ones(lead + (H,), dtype=torch.float32,
+                              device=device), ("ssm_heads",)),
+        "gnorm": named(torch.ones(lead + (d_in,), dtype=dtype, device=device),
+                       ("ssm_inner",)),
+        "wo": dense((d_in, d), d_in, ("ssm_inner", "embed")),
     }
 
 
@@ -103,11 +113,13 @@ def apply_ssd_block(p: Dict, x: torch.Tensor, cfg,
     B, S, _ = x.shape
     d_in, H, G, N = _dims(cfg)
     Pd = cfg.ssm_headdim
-    h = apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps)
+    h = seq_full(apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps))
     z = matmul(h, p["wz"])
     xs = matmul(h, p["wx"])
     bc = matmul(h, p["wbc"])
     dt_raw = matmul(h, p["wdt"])
+    z = constrain(z, "batch", "seq_full", "ssm_inner")
+    xs = constrain(xs, "batch", "seq_full", "ssm_inner")
 
     new = None
     decode = cache is not None and S == 1
@@ -130,6 +142,7 @@ def apply_ssd_block(p: Dict, x: torch.Tensor, cfg,
     dtv = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, S, H, Pd)
+    xh = constrain(xh, "batch", "seq_full", "ssm_heads", None)
 
     if decode:
         y, state = ops.ssd_decode_step(xh, dtv, A, Bm, Cm, cache.state,

@@ -175,3 +175,14 @@ def update_(grads, state: AdamWState, params, cfg: AdamWConfig,
         p.copy_(new_r)
     state.step.copy_(step)
     return {"grad_norm": gnorm, "lr": lr_t}
+
+
+def state_logical_axes(state: AdamWState, param_axes) -> AdamWState:
+    """Optimizer-state axes mirror parameter axes (FSDP-aligned)."""
+    return AdamWState(
+        step=(),
+        mu=param_axes,
+        nu=param_axes,
+        master=param_axes if state.master is not None else None,
+        ef_residual=param_axes if state.ef_residual is not None else None,
+    )

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ..backends.dataflow import CapturedProgram
+from ..dist.sharding import constrain
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ssd import ssd_chunked
 from ..models import model as M
@@ -86,7 +87,9 @@ class Request:
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits[:, -1], dim=-1)
+    # under sharding rules the vocab is gathered first: DTensor's argmax
+    # over a sharded dim reads values on the host
+    return torch.argmax(constrain(logits[:, -1], "batch", None), dim=-1)
 
 
 def serve_step(params, tokens, caches, pos, *, cfg):

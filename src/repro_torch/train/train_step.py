@@ -136,14 +136,17 @@ def compute_grads(params, batch: Dict, cfg, tcfg: TrainConfig):
         if v.shape[0] % n:
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split into {n} microbatches")
-    micro = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-             for k, v in batch.items()}
-    g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    rows = next(iter(batch.values())).shape[0] // n
+    # microbatch i is rows [i rows, (i + 1) rows) of each entry: slices,
+    # which DTensor shards as it does the batch (a reshape to (n, rows)
+    # of a dim split over two mesh axes it cannot lay out)
+    g_acc = [torch.zeros_like(p, dtype=torch.float32)
              for p in T.leaves(params)]
     m_acc = {k: torch.zeros((), dtype=torch.float32,
                             device=g_acc[0].device) for k in METRICS}
     for i in range(n):
-        m, g = _value_and_grad(params, cfg, {k: v[i] for k, v in micro.items()})
+        m, g = _value_and_grad(params, cfg, {k: v[i * rows:(i + 1) * rows]
+                                             for k, v in batch.items()})
         for a, b in zip(g_acc, g):
             a.add_(b)
         for k in METRICS:

@@ -290,7 +290,16 @@ def test_import_and_run_load_no_jax_or_reference_module():
         "import repro_torch, repro_torch.bench, repro_torch.serve\n"
         "import repro_torch.models.model, repro_torch.kernels.ops\n"
         "import repro_torch.models.moe, repro_torch.bench.moe\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.report, repro_torch.dist.sharding\n"
+        "import repro_torch.bench.tables, repro_torch.kernels.sharded\n"
+        "from repro_torch.bench import DryRunTimer\n"
+        "from repro_torch.bench.moe import MoEDispatchSpec, "
+        "moe_dispatch_report\n"
+        "moe_dispatch_report(MoEDispatchSpec(), compiled=True)\n"
+        "repro_torch.models.model.model_spec(\n"
+        "    repro_torch.configs.get_config('yi-6b'))\n"
         "from repro_torch.backends import get_backend\n"
         "from repro_torch.core import make_graph, check_outputs\n"
         "g = make_graph(width=4, height=3, iterations=2)\n"
@@ -300,6 +309,8 @@ def test_import_and_run_load_no_jax_or_reference_module():
         "          'torch-csp[ranks=2,device=cpu]',\n"
         "          'torch-pipeline[ranks=2,comm_overlap=True,device=cpu]'):\n"
         "    check_outputs(g, get_backend(b).run([g])[0])\n"
+        "    if not b.startswith('torch-host'):\n"
+        "        DryRunTimer().measure(b, [g])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
