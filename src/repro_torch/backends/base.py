@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.graph import TaskGraph
 
 _BACKENDS: Dict[str, Type["Backend"]] = {}
@@ -227,6 +228,10 @@ class StackedProgramBackend(Backend):
     turns a built program into what a runner calls (the program itself
     here; ``cuda-graph`` captures it); a runner keeps that as
     ``runner.program``.
+
+    While ``trace.recording()`` is on, a runner call is a ``run`` span
+    holding ``launch`` (the program's call), ``wait`` (until the device
+    has finished it) and ``copy`` (to numpy); off, the copy alone waits.
     """
 
     def __init__(self, device: Optional[str] = None):
@@ -243,9 +248,15 @@ class StackedProgramBackend(Backend):
 
     def prepare(self, graphs: Sequence[TaskGraph]):
         program = self._executable(self._build(list(graphs)))
+        device = self.device
 
         def runner() -> List[np.ndarray]:
-            return [o.cpu().numpy() for o in program()]
+            with trace.span("run"):
+                with trace.span("launch"):
+                    outs = program()
+                trace.wait(device)
+                with trace.span("copy"):
+                    return [o.cpu().numpy() for o in outs]
 
         runner.program = program
         return runner
@@ -256,10 +267,16 @@ class StackedProgramBackend(Backend):
         if built is None:
             return self.prepare(graphs)
         program = self._executable(built)
+        device = self.device
 
         def runner() -> List[np.ndarray]:
-            out = program().cpu().numpy()
-            return [out[k] for k in range(out.shape[0])]
+            with trace.span("run"):
+                with trace.span("launch"):
+                    out = program()
+                trace.wait(device)
+                with trace.span("copy"):
+                    out = out.cpu().numpy()
+                    return [out[k] for k in range(out.shape[0])]
 
         runner.program = program
         return runner

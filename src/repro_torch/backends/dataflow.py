@@ -32,6 +32,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from .. import trace
 from ..kernels import taskbench_compute, taskbench_memory
 from .base import register_backend
 from .scanvec import ScanBackend
@@ -47,7 +48,8 @@ class CapturedProgram:
     wrapper of ``counters`` (K1 and K2 unless given), the launches recorded
     by the capture, each a kernel node of the graph (the wrappers' counters
     count at capture, never at replay); ``pool_bytes`` is the device memory
-    the graph's private pool holds.  The eager warm-up runs ``program``
+    the graph's private pool holds; a replay is the span ``graph.replay``
+    while ``trace.recording()`` is on.  The eager warm-up runs ``program``
     once for real, so a program that updates state in place leaves it
     updated.
 
@@ -93,7 +95,8 @@ class CapturedProgram:
                       for fn, n in zip(counters, before)}
 
     def __call__(self):
-        self.graph.replay()
+        with trace.span("graph.replay"):
+            self.graph.replay()
         return self.outputs
 
 

@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.graph import CHECKSUM_MOD, TaskGraph
 from ..core.kernel_ref import mxu_weight
 from ..core.kernel_spec import COMPUTE_TILE_ELEMS, MXU_DIM, KernelSpec
@@ -51,6 +52,11 @@ from . import body
 from .base import StackedProgramBackend, register_backend
 
 KIND_CODES = {"empty": 0, "compute": 1, "compute_mxu": 2, "memory": 3}
+# K3's counters while recording (kernels/csrc/fused.cu), summed over each
+# CTA's tasks: its warp 0's cycles in the dependency combine (the polls and
+# the sum of their values), the cycles from each task's start to its signal
+# store, and the tasks that found a dependency not ready at the first poll
+K3_COUNTERS = ("k3.wait_cycles", "k3.task_cycles", "k3.late_tasks")
 
 
 def scratch_elems(kernel: KernelSpec) -> int:
@@ -162,9 +168,15 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
     returns the ``(G*W, P)`` final payload wave.  A CPU tensor runs the
     plain version; a CUDA tensor launches K3 once on the current stream
     (and counts it in ``taskbench_fused.launches``).
+
+    While ``trace.recording()`` is on, the call records the spans
+    ``fused.check``, ``fused.alloc`` and ``fused.launch`` (the library
+    call), and K3 runs its traced instance, which keeps ``K3_COUNTERS`` a
+    CTA in a buffer of ``trace.device_counters``.
     """
-    _check(idx, mask, iters, base, mxu_w, kernel, ngraphs, height,
-           payload_elems)
+    with trace.span("fused.check"):
+        _check(idx, mask, iters, base, mxu_w, kernel, ngraphs, height,
+               payload_elems)
     if idx.device.type == "cpu":
         return taskbench_fused_plain(
             idx, mask, iters, base, mxu_w, kernel=kernel, ngraphs=ngraphs,
@@ -174,29 +186,47 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
     G, W, R = ngraphs, idx.shape[1], idx.shape[2]
     dev = idx.device
     # torch.empty, never zeros: a fill would be a second kernel.  The kernel
-    # writes every payload row, and zeroes its signal words itself (a
-    # memset on the stream)
-    wave = torch.empty((G * W, payload_elems), dtype=torch.float32,
-                       device=dev)
-    words = torch.empty((G * height, W), dtype=torch.int64, device=dev)
-    stride = scratch_elems(kernel)
-    scratch = (torch.empty((G * W, stride), dtype=torch.float32, device=dev)
-               if stride else None)
+    # writes every payload row and counter, and zeroes its signal words
+    # itself (a memset on the stream)
+    with trace.span("fused.alloc"):
+        wave = torch.empty((G * W, payload_elems), dtype=torch.float32,
+                           device=dev)
+        words = torch.empty((G * height, W), dtype=torch.int64, device=dev)
+        stride = scratch_elems(kernel)
+        scratch = (torch.empty((G * W, stride), dtype=torch.float32,
+                               device=dev) if stride else None)
+        stats = (trace.device_counters(K3_COUNTERS,
+                                       fused_blocks(G * W, dev.index), dev)
+                 if trace.active() else None)
     span, size, _ = bodies.memory_geometry(kernel)
-    lib = _build.library()
-    err = lib.taskbench_fused_launch(
-        idx.data_ptr(), mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
-        None if mxu_w is None else mxu_w.data_ptr(), wave.data_ptr(),
-        words.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        stride, KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
-        kernel.iterations, span, size, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "taskbench_fused")
+    with trace.span("fused.launch"):
+        lib = _build.library()
+        err = lib.taskbench_fused_launch(
+            idx.data_ptr(), mask.data_ptr(), iters.data_ptr(),
+            base.data_ptr(), None if mxu_w is None else mxu_w.data_ptr(),
+            wave.data_ptr(), words.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if stats is None else stats.data_ptr(), stride,
+            KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
+            kernel.iterations, span, size, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "taskbench_fused")
     taskbench_fused.launches += 1
     return wave
 
 
 taskbench_fused.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def fused_blocks(tasks: int, device_index: int) -> int:
+    """The grid of K3's launch for ``tasks`` = G*W tasks on the card
+    ``device_index`` (``taskbench_fused_blocks``): fixed for a card, the
+    kernel and the task count, so queried once."""
+    blocks = _build.library().taskbench_fused_blocks(tasks, device_index)
+    if blocks <= 0:
+        raise RuntimeError("taskbench_fused_blocks could not query K3's grid")
+    return blocks
 
 
 def onesided_cost(idx, mask, iters, base, send_rows, offsets, mxu_w, *,

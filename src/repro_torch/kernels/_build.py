@@ -39,7 +39,7 @@ SIGNATURES = {
     "taskbench_compute_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "taskbench_empty_launch": ([_I, _I, _P], _I),
     "taskbench_memory_launch": ([_P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
-    "taskbench_fused_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _L,
+    "taskbench_fused_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                _I),
     "taskbench_fused_blocks": ([_I, _I], _I),

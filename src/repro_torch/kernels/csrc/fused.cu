@@ -47,6 +47,23 @@
 // allocates, so the compiler can neither merge the identical tile values nor
 // drop the values that do not reach the payload.  compute_mxu is a plain
 // SIMT fp32 loop over the 128 x 128 x 128 product: no tensor cores, no TF32.
+//
+// Tracing: the timestep loop is one template on kTrace, built twice.  The
+// untraced instance is `fused_kernel`, the launch without a counter
+// buffer, its code the same as without tracing (every tracing statement is
+// under `if constexpr`).  `fused_kernel_traced` is launched when the wrapper
+// passes `stats` (only while repro_torch.trace is recording), on the
+// untraced instance's grid: if it cannot keep that grid resident the
+// cooperative launch fails, with no fallback.  Each of its CTAs sums, with
+// clock64() (the SM's cycle counter: durations within a CTA only), the
+// cycles its warp 0 spends in the dependency combine (the wait_word polls
+// of its slowest lane and the 5-step shuffle that sums their values), the
+// cycles from each task's start to its signal store, and the tasks that
+// found a dependency not ready at the first poll, and writes them to its
+// row of `stats`, (grid, kStats) int64.  Each lane timing its own polls,
+// the warp's maximum then taken with 64-bit shuffles, made the benchmark's
+// compute launch 1.70x as long (1.98 -> 3.38 ms, H100 at 700 W); lane 0's
+// clock around the combine costs 1.026x.
 #include "bodies.cuh"
 #include "signal.cuh"
 
@@ -68,10 +85,16 @@ struct FusedArgs {
   unsigned long long wait_timeout_ns;  // deadlock guard (signal.cuh)
 };
 
-__global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
+// a traced CTA's row of counters (backends/megakernel.py::K3_COUNTERS)
+enum Stat { kWaitCycles = 0, kTaskCycles = 1, kLateTasks = 2, kStats = 3 };
+
+template <bool kTrace>
+__device__ __forceinline__ void run_tasks(FusedArgs a, long long* stats) {
   using namespace taskbench;
   __shared__ int s_acc;
   const int tasks = a.G * a.W;
+  // the traced instance's sums, kept by thread 0
+  [[maybe_unused]] long long wait_cycles = 0, task_cycles = 0, late_tasks = 0;
 
   const auto row_of = [&](int t, int task) {
     return (static_cast<size_t>(task / a.W) * a.H + t) * a.W + task % a.W;
@@ -85,6 +108,8 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
 
   for (int t = 0; t < a.H; ++t) {
     for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
+      [[maybe_unused]] long long task_start = 0;
+      if constexpr (kTrace) task_start = clock64();
       const int i = task % a.W;
       const size_t row = row_of(t, task);
       const TaskEntries e = next;
@@ -95,13 +120,33 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       // dependency r, (row - i - W) + j; at t = 0 there is none
       if (threadIdx.x < 32) {
         const unsigned long long* prev = a.words + (row - i);
-        const int part = warp_combine(
-            e, a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
-            [&](int j) {
-              return static_cast<int>(
-                  wait_word(prev - a.W + j, t, a.wait_timeout_ns));
-            });
-        if (threadIdx.x == 0) s_acc = part;
+        if constexpr (kTrace) {
+          bool late = false;
+          const long long c0 = clock64();
+          const int part = warp_combine(
+              e, a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
+              [&](int j) {
+                return static_cast<int>(wait_word<true>(
+                    prev - a.W + j, t, a.wait_timeout_ns, &late));
+              });
+          // warp_combine's sum ends in a shuffle that waits for every lane,
+          // so lane 0's clock is past the slowest lane's polls
+          const long long waited = clock64() - c0;
+          late = __any_sync(0xffffffffu, late);
+          if (threadIdx.x == 0) {
+            s_acc = part;
+            wait_cycles += waited;
+            late_tasks += late;
+          }
+        } else {
+          const int part = warp_combine(
+              e, a.idx + row * a.R, a.mask + row * a.R, t > 0 ? a.R : 0,
+              [&](int j) {
+                return static_cast<int>(
+                    wait_word(prev - a.W + j, t, a.wait_timeout_ns));
+              });
+          if (threadIdx.x == 0) s_acc = part;
+        }
       }
       __syncthreads();
       const int acc = s_acc;
@@ -118,10 +163,30 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       // the signal: the body has ended in every thread (run_body)
       write_payload<kThreads>(a.wave + static_cast<size_t>(task) * a.P, a.P,
                               t, i, base, combined, res);
-      if (threadIdx.x == 0) store_word(a.words + row, t + 1, combined);
+      if (threadIdx.x == 0) {
+        if constexpr (kTrace) task_cycles += clock64() - task_start;
+        store_word(a.words + row, t + 1, combined);
+      }
       __syncthreads();  // s_acc is rewritten by the next task
     }
   }
+  if constexpr (kTrace) {
+    if (threadIdx.x == 0) {
+      long long* out = stats + static_cast<size_t>(blockIdx.x) * kStats;
+      out[kWaitCycles] = wait_cycles;
+      out[kTaskCycles] = task_cycles;
+      out[kLateTasks] = late_tasks;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
+  run_tasks<false>(a, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_kernel_traced(FusedArgs a, long long* stats) {
+  run_tasks<true>(a, stats);
 }
 
 int blocks_for(int tasks, int device, cudaError_t* err) {
@@ -153,9 +218,9 @@ extern "C" int taskbench_fused_blocks(int tasks, int device) {
 extern "C" int taskbench_fused_launch(
     const int* idx, const int* mask, const int* iters, const int* base,
     const float* mxu_w, float* wave, unsigned long long* words,
-    float* scratch, long long scratch_stride, int kind, int G, int H, int W,
-    int R, int P, int max_iters, int span, int size, int device,
-    void* stream) {
+    float* scratch, long long* stats, long long scratch_stride, int kind,
+    int G, int H, int W, int R, int P, int max_iters, int span, int size,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tasks = G * W;
@@ -173,10 +238,17 @@ extern "C" int taskbench_fused_launch(
                  R,       P,     max_iters, span, size,
                  taskbench::wait_timeout_ns(kind, H, per_cta, max_iters,
                                             span, size)};
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel),
-                                    dim3(blocks), dim3(kThreads), params, 0,
-                                    s);
+  if (stats == nullptr) {
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel),
+                                      dim3(blocks), dim3(kThreads), params, 0,
+                                      s);
+  } else {
+    void* params[] = {&args, &stats};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(fused_kernel_traced), dim3(blocks),
+        dim3(kThreads), params, 0, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,12 +45,16 @@ __device__ __forceinline__ void store_word(unsigned long long* word,
 
 // Spin until `word` carries `tag`, trapping after timeout_ns; returns the
 // value the same store wrote.  The clock is read on every 64th poll only, so
-// a poll costs one L2 trip.
+// a poll costs one L2 trip.  kNoteLate (K3's traced instance) also sets
+// *late when the first poll finds the word not yet written.
+template <bool kNoteLate = false>
 __device__ __forceinline__ unsigned wait_word(const unsigned long long* word,
                                               unsigned tag,
-                                              unsigned long long timeout_ns) {
+                                              unsigned long long timeout_ns,
+                                              bool* late = nullptr) {
   unsigned long long w = load_word(word);
   if (static_cast<unsigned>(w >> 32) != tag) {
+    if constexpr (kNoteLate) *late = true;
     const unsigned long long start = global_ns();
     for (unsigned polls = 1;; ++polls) {
       w = load_word(word);

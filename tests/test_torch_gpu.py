@@ -12,11 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import trace  # noqa: E402
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.backends.megakernel import (  # noqa: E402
-    MegakernelBackend, onesided_tables_from_numpy, tables_from_numpy,
-    taskbench_fused, taskbench_fused_plain, taskbench_onesided,
-    taskbench_onesided_plain)
+    K3_COUNTERS, MegakernelBackend, fused_blocks, onesided_tables_from_numpy,
+    tables_from_numpy, taskbench_fused, taskbench_fused_plain,
+    taskbench_onesided, taskbench_onesided_plain)
 from repro_torch.core import make_graph, pattern_names, replicate  # noqa: E402
 from repro_torch.dist import plan_comm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -453,6 +454,73 @@ def test_k3_k4_run_ahead_under_imbalance(cuda, pattern):
         tabs = onesided_tables(g, ranks, cuda)
         assert torch.equal(taskbench_onesided(*tabs, **kw),
                            taskbench_onesided_plain(*tabs, **kw)), ranks
+
+
+# the benchmark's K3 cells (portbench/configs, portbench/traffic)
+K3_CELLS = {
+    "compute": dict(kernel="compute", iterations=64),
+    "memory": dict(kernel="memory", iterations=32, span_bytes=65536,
+                   scratch_bytes=2097152),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", sorted(K3_CELLS))
+def test_traced_k3_is_bitwise_with_untraced_and_counts(cuda, cell):
+    """K3's traced instance (recording on) returns the untraced wave bit
+    for bit at the benchmark cells' shapes, on the untraced grid, with each
+    CTA's counters: 0 < wait cycles <= task cycles, late tasks at most the
+    CTA's tasks."""
+    g = make_graph(width=132, height=1000, pattern="stencil",
+                   **K3_CELLS[cell])
+    tabs = tables_from_numpy(MegakernelBackend._tables(
+        [g], max(1, g.max_radix())), cuda)
+    kw = dict(kernel=g.kernel, ngraphs=1, height=g.height,
+              payload_elems=g.payload_elems)
+    want = taskbench_fused(*tabs, **kw)
+    with trace.recording() as rec:
+        got = taskbench_fused(*tabs, **kw)
+    assert torch.equal(got, want)
+    assert [s.name for s in rec.spans] == ["fused.check", "fused.alloc",
+                                           "fused.launch"]
+    c = {k.name: k.values for k in rec.counters}
+    assert list(c) == list(K3_COUNTERS)
+    blocks = fused_blocks(g.width, cuda.index or 0)
+    assert all(len(v) == blocks for v in c.values())
+    wait, task, late = (c[k] for k in K3_COUNTERS)
+    per_cta = g.height * -(-g.width // blocks)
+    for w, t, n in zip(wait, task, late):
+        assert 0 < w <= t and 0 <= n <= per_cta
+    assert taskbench_fused(*tabs, **kw).equal(want)  # untraced again
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,inner", [("cuda-fused", "fused.launch"),
+                                        ("cuda-graph", "graph.replay")])
+def test_runner_spans_on_the_card(cuda, spec, inner):
+    """A runner with recording on: its outputs as with it off; each run
+    over launch, wait and copy, which cover nearly all of a run (the
+    median: a stall of the host can land between two spans); the program's
+    own span inside launch."""
+    g = make_graph(width=132, height=100, iterations=16)
+    runner = get_backend(spec).prepare_many([g])
+    want = runner()
+    with trace.recording() as rec:
+        got = [runner() for _ in range(10)]
+    for out in got:
+        assert np.array_equal(out[0], want[0])
+    runs = [k for k, s in enumerate(rec.spans) if s.name == "run"]
+    assert len(runs) == 10
+    covered = []
+    for k in runs:
+        kids = [s for s in rec.spans if s.parent == k]
+        assert [s.name for s in kids] == ["launch", "wait", "copy"]
+        r = rec.spans[k]
+        covered.append(sum(s.end_ns - s.start_ns for s in kids)
+                       / (r.end_ns - r.start_ns))
+        launch = rec.spans.index(kids[0])
+        assert inner in {s.name for s in rec.spans if s.parent == launch}
+    assert sorted(covered)[len(covered) // 2] >= 0.9, covered
 
 
 # B, S, H, P, G, N, chunk: tests/test_kernels.py's SSD cases, chunk 1 and 37,
