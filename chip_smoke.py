@@ -928,8 +928,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                                    "Performance Loss", "warning")):
             print("   " + line.strip())
     print(f"   K3 grid for {WIDTH} tasks: "
-          f"{lib.taskbench_fused_blocks(WIDTH, 0)} blocks; K4 holds at most "
-          f"{lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
+          f"{lib.taskbench_fused_blocks(WIDTH, 0, 0)} blocks; K4 holds at "
+          f"most {lib.taskbench_onesided_blocks(0)} co-resident ranks; K6 "
           f"uses {lib.ssd_chunked_smem_bytes(64, 128, 128)} bytes of shared "
           f"memory a CTA at P=64, N=128, chunk 128")
     for D in (32, 64, 80, 128, 256):  # dynamic, so ptxas does not count it
@@ -1046,7 +1046,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         print(f"   K3 full size {name} (W={WIDTH}, H={HEIGHT}): "
               f"max abs diff {e}")
     # the grid-stride case: more tasks than CTAs, several a CTA a timestep
-    blocks = lib.taskbench_fused_blocks(1 << 20, 0)
+    blocks = lib.taskbench_fused_blocks(1 << 20, 0, 0)
     stacked = blocks // WIDTH + 1
     _, _, got, want = fused_pair(replicate(nearest, stacked))
     e = bitwise(f"K3 full size {stacked} x nearest[radix=5]", got, want)

@@ -48,6 +48,7 @@ from ..core.kernel_spec import COMPUTE_TILE_ELEMS, MXU_DIM, KernelSpec
 from ..dist import collectives as CC
 from ..kernels import _build, bodies
 from ..kernels._cost import Cost, costed, data_sum, nbytes
+from ..kernels.memory import wide_path
 from . import body
 from .base import StackedProgramBackend, register_backend
 
@@ -167,7 +168,9 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
     Tables as ``MegakernelBackend._tables`` builds them (on one device);
     returns the ``(G*W, P)`` final payload wave.  A CPU tensor runs the
     plain version; a CUDA tensor launches K3 once on the current stream
-    (and counts it in ``taskbench_fused.launches``).
+    (and counts it in ``taskbench_fused.launches``, and in
+    ``taskbench_fused.wide_launches`` where the memory body moves 16-byte
+    words, ``_wide``).
 
     While ``trace.recording()`` is on, the call records the spans
     ``fused.check``, ``fused.alloc`` and ``fused.launch`` (the library
@@ -195,10 +198,10 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
         stride = scratch_elems(kernel)
         scratch = (torch.empty((G * W, stride), dtype=torch.float32,
                                device=dev) if stride else None)
-        stats = (trace.device_counters(K3_COUNTERS,
-                                       fused_blocks(G * W, dev.index), dev)
-                 if trace.active() else None)
-    span, size, _ = bodies.memory_geometry(kernel)
+        span, size, _ = bodies.memory_geometry(kernel)
+        wide = _wide(kernel, span, scratch)
+        stats = (trace.device_counters(K3_COUNTERS, fused_blocks(
+            G * W, dev.index, wide), dev) if trace.active() else None)
     with trace.span("fused.launch"):
         lib = _build.library()
         err = lib.taskbench_fused_launch(
@@ -208,22 +211,33 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
             None if scratch is None else scratch.data_ptr(),
             None if stats is None else stats.data_ptr(), stride,
             KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
-            kernel.iterations, span, size, dev.index,
+            kernel.iterations, span, size, int(wide), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "taskbench_fused")
     taskbench_fused.launches += 1
+    taskbench_fused.wide_launches += wide
     return wave
 
 
 taskbench_fused.launches = 0
+taskbench_fused.wide_launches = 0
+
+
+def _wide(kernel: KernelSpec, span: int, scratch) -> bool:
+    """Whether K3's or K4's memory body runs on float4s: a memory body whose
+    scratch rows (whole numbers of windows apart) and windows all start on
+    16-byte boundaries (``kernels.memory.wide_path``)."""
+    return kernel.kind == "memory" and wide_path(span, scratch.data_ptr())
 
 
 @functools.lru_cache(maxsize=64)
-def fused_blocks(tasks: int, device_index: int) -> int:
+def fused_blocks(tasks: int, device_index: int, wide: bool) -> int:
     """The grid of K3's launch for ``tasks`` = G*W tasks on the card
-    ``device_index`` (``taskbench_fused_blocks``): fixed for a card, the
-    kernel and the task count, so queried once."""
-    blocks = _build.library().taskbench_fused_blocks(tasks, device_index)
+    ``device_index``, for the instance with the 16-byte memory body where
+    ``wide`` (``taskbench_fused_blocks``): fixed for a card, the instance
+    and the task count, so queried once."""
+    blocks = _build.library().taskbench_fused_blocks(tasks, int(wide),
+                                                     device_index)
     if blocks <= 0:
         raise RuntimeError("taskbench_fused_blocks could not query K3's grid")
     return blocks
@@ -340,7 +354,8 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
     Tables as ``onesided_tables_from_numpy`` stages them; returns the
     ``(ranks*local, P)`` final payload wave, dead columns included.  A CPU
     tensor runs the plain version; a CUDA tensor launches K4 once on the
-    current stream (and counts it in ``taskbench_onesided.launches``),
+    current stream (and counts it in ``taskbench_onesided.launches``, and
+    in ``taskbench_onesided.wide_launches`` as ``taskbench_fused`` does),
     with one CTA per rank, and raises when the card cannot hold ``ranks``
     CTAs at once.
     """
@@ -372,6 +387,7 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
     inbox = torch.empty((ranks, height, max(n_off * cap, 1), P),
                         dtype=torch.int64, device=dev)
     span, size, _ = bodies.memory_geometry(kernel)
+    wide = _wide(kernel, span, scratch)
     err = lib.taskbench_onesided_launch(
         idx.data_ptr(), mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
         send_rows.data_ptr(), offsets.data_ptr(),
@@ -379,13 +395,15 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
         None if scratch is None else scratch.data_ptr(), stride,
         inbox.data_ptr(), KIND_CODES[kernel.kind], ranks,
         height, local, R, P, n_off, cap, kernel.iterations, span, size,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        int(wide), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "taskbench_onesided")
     taskbench_onesided.launches += 1
+    taskbench_onesided.wide_launches += wide
     return waves[(height - 1) % 2]
 
 
 taskbench_onesided.launches = 0
+taskbench_onesided.wide_launches = 0
 
 
 def tables_from_numpy(tabs: Tuple[np.ndarray, ...], device) -> Tuple:

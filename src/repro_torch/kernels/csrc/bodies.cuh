@@ -59,10 +59,56 @@ __device__ __forceinline__ void compute_tile(const float* in, float* out,
 
 // `reps` memory steps on each of the `count` values at `in`, written to
 // `out` (which may be `in`): each value is read once, stepped in a register
-// and written once.  All threads of the block take part.
+// and written once.  All kThreads threads of the block take part.
+//
+// What bounds the walk is the bytes in flight: at ~1 us of loaded latency
+// an SM has to keep ~25 KB of loads outstanding for its share of 3.35 TB/s.
+// One value a thread, loaded and stepped before the next load, leaves
+// 1 KiB in flight for a 256-thread block, which is all K3 has on an SM.  So
+// where `wide` (the wrapper's check: `in` and `out` on 16-byte boundaries
+// and `count` a multiple of 4), each thread issues kWideUnroll independent
+// 16-byte loads, neighbouring threads on neighbouring float4s, before it
+// steps any of them: 32 KiB in flight a block (16 loads ran no faster on an
+// H100, 32 far slower, and a streaming hint on the stores gained nothing).
+// It then steps each lane `reps` times in registers and issues the stores.
+// The plain loop takes what the groups of kThreads * kWideUnroll float4s
+// leave, and all of an input that is not `wide`.  The loads are plain
+// `ld.global`: in K3 and K4 the block itself wrote `in` (the fill), so the
+// non-coherent path is not allowed.  Every value gets the same explicitly
+// rounded steps in the same order, so the result is bitwise that of the
+// plain loop.
+constexpr int kWideUnroll = 8;
+
+__device__ __forceinline__ float4 memory_step4(float4 v) {
+  return make_float4(memory_step(v.x), memory_step(v.y), memory_step(v.z),
+                     memory_step(v.w));
+}
+
+template <int kThreads>
 __device__ __forceinline__ void memory_window(const float* in, float* out,
-                                              int count, int reps) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+                                              int count, int reps,
+                                              bool wide) {
+  int done = 0;
+  if (wide) {
+    constexpr int kGroup = kThreads * kWideUnroll;  // float4s a group
+    const float4* in4 = reinterpret_cast<const float4*>(in);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    const int groups = count / 4 / kGroup;
+    for (int g = 0; g < groups; ++g) {
+      const int at = g * kGroup + threadIdx.x;
+      float4 v[kWideUnroll];
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) v[u] = in4[at + u * kThreads];
+      for (int r = 0; r < reps; ++r) {
+#pragma unroll
+        for (int u = 0; u < kWideUnroll; ++u) v[u] = memory_step4(v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) out4[at + u * kThreads] = v[u];
+    }
+    done = groups * kGroup * 4;
+  }
+  for (int e = done + threadIdx.x; e < count; e += blockDim.x) {
     float v = in[e];
     for (int r = 0; r < reps; ++r) v = memory_step(v);
     out[e] = v;
@@ -112,9 +158,13 @@ __device__ __forceinline__ int warp_combine(const TaskEntries& e,
 // The task body of one task, run by all kThreads threads of the block:
 // returns the kernel result, the same value in every thread.  The state
 // lives in the task's scratch row `scr` in global memory (see fused.cu).
+// `wide` (memory only): the wrapper found the scratch on a 16-byte
+// boundary and `span` a multiple of 4, so every row and window starts on
+// one (rows are whole numbers of windows apart).
 template <int kThreads>
 __device__ float run_body(int kind, float seed, int n, float* scr,
-                          const float* mxu_w, int span, int size) {
+                          const float* mxu_w, int span, int size,
+                          bool wide) {
   if (kind == kEmpty) return __fmul_rn(seed, 0.0f);
 
   if (kind == kCompute) {
@@ -127,15 +177,25 @@ __device__ float run_body(int kind, float seed, int n, float* scr,
   }
 
   if (kind == kMemory) {
+    // the whole row is filled before the walk reads any of it: fused into
+    // the walk, or filled a window at a time, the fill would hand the walk
+    // its values through the L2 instead of the task's scratch row
     const float start = __fadd_rn(1.0f, seed);
-    for (int e = threadIdx.x; e < size; e += kThreads) scr[e] = start;
+    if (wide) {
+      const float4 start4 = make_float4(start, start, start, start);
+      float4* scr4 = reinterpret_cast<float4*>(scr);
+      for (int e = threadIdx.x; e < size / 4; e += kThreads) scr4[e] = start4;
+    } else {
+      for (int e = threadIdx.x; e < size; e += kThreads) scr[e] = start;
+    }
     __syncthreads();
     const int nwin = size / span;
     for (int w = 0; w < nwin; ++w) {
       const int reps = window_reps(n, nwin, w);
       if (reps == 0) break;  // later windows get no more steps than this one
-      memory_window(scr + static_cast<size_t>(w) * span,
-                    scr + static_cast<size_t>(w) * span, span, reps);
+      memory_window<kThreads>(scr + static_cast<size_t>(w) * span,
+                              scr + static_cast<size_t>(w) * span, span, reps,
+                              wide);
     }
     __syncthreads();
     return scr[0];

@@ -39,6 +39,18 @@
 // words of t-1, so it holds back no task of t.  Every wait is still bounded
 // by the launch's deadlock guard, which traps (signal.cuh).
 //
+// The memory body is bound by bytes, not by the chain: a task fills its
+// scratch row (4 * size bytes written), then reads and writes each window
+// once, 3 * 4 * size bytes a task a step (6 MiB at the benchmark's 2 MiB
+// row), and one 256-thread CTA on each SM has to keep that stream busy.
+// Where the wrapper finds the scratch and `span` whole float4s (`wide`), the
+// fill stores float4s and the walk keeps kWideUnroll 16-byte loads in flight
+// a thread before it steps them (bodies.cuh::memory_window), instead of one
+// 4-byte load at a time.  That body needs more registers than the others
+// (built into one instance with it, the compute body ran ~2 % slower on an
+// H100), so it is an instance of its own (`fused_kernel_wide`, launched
+// only where `wide`): the other bodies keep their code and their grid.
+//
 // The payload rows are written, never read, inside the kernel: one (G*W, P)
 // buffer holds the last wave.  The dependency combine is native int32 math
 // done by one warp (the reference's f32 one-hot select-sum exists only
@@ -48,13 +60,14 @@
 // drop the values that do not reach the payload.  compute_mxu is a plain
 // SIMT fp32 loop over the 128 x 128 x 128 product: no tensor cores, no TF32.
 //
-// Tracing: the timestep loop is one template on kTrace, built twice.  The
-// untraced instance is `fused_kernel`, the launch without a counter
-// buffer, its code the same as without tracing (every tracing statement is
-// under `if constexpr`).  `fused_kernel_traced` is launched when the wrapper
-// passes `stats` (only while repro_torch.trace is recording), on the
-// untraced instance's grid: if it cannot keep that grid resident the
-// cooperative launch fails, with no fallback.  Each of its CTAs sums, with
+// Tracing: the timestep loop is one template on kTrace (and kWide), built
+// twice for each body.  The untraced instance is `fused_kernel` (or
+// `fused_kernel_wide`), the launch without a counter buffer, its code the
+// same as without tracing (every tracing statement is under `if
+// constexpr`).  `fused_kernel_traced` (`fused_kernel_traced_wide`) is
+// launched when the wrapper passes `stats` (only while repro_torch.trace is
+// recording), on the untraced instance's grid, which blocks_for sizes so
+// that both keep it resident.  Each of its CTAs sums, with
 // clock64() (the SM's cycle counter: durations within a CTA only), the
 // cycles its warp 0 spends in the dependency combine (the wait_word polls
 // of its slowest lane and the 5-step shuffle that sums their values), the
@@ -88,7 +101,7 @@ struct FusedArgs {
 // a traced CTA's row of counters (backends/megakernel.py::K3_COUNTERS)
 enum Stat { kWaitCycles = 0, kTaskCycles = 1, kLateTasks = 2, kStats = 3 };
 
-template <bool kTrace>
+template <bool kTrace, bool kWide>
 __device__ __forceinline__ void run_tasks(FusedArgs a, long long* stats) {
   using namespace taskbench;
   __shared__ int s_acc;
@@ -157,7 +170,7 @@ __device__ __forceinline__ void run_tasks(FusedArgs a, long long* stats) {
       const float seed = __fmul_rn(static_cast<float>(acc), kFoldBlock);
       float* scr = a.scratch + static_cast<size_t>(task) * a.scratch_stride;
       const float res = run_body<kThreads>(a.kind, seed, n, scr, a.mxu_w,
-                                           a.span, a.size);
+                                           a.span, a.size, kWide);
 
       // 4. the payload row (slot 1 is the column within its graph), then
       // the signal: the body has ended in every thread (run_body)
@@ -181,16 +194,37 @@ __device__ __forceinline__ void run_tasks(FusedArgs a, long long* stats) {
 }
 
 __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
-  run_tasks<false>(a, nullptr);
+  run_tasks<false, false>(a, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
     fused_kernel_traced(FusedArgs a, long long* stats) {
-  run_tasks<true>(a, stats);
+  run_tasks<true, false>(a, stats);
 }
 
-int blocks_for(int tasks, int device, cudaError_t* err) {
-  int per_sm = 0, sms = 0, coop = 0;
+__global__ void __launch_bounds__(kThreads) fused_kernel_wide(FusedArgs a) {
+  run_tasks<false, true>(a, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_kernel_traced_wide(FusedArgs a, long long* stats) {
+  run_tasks<true, true>(a, stats);
+}
+
+// The untraced and the traced instance of one body, and the grid both can
+// keep resident, so a traced launch runs the untraced one's grid.
+struct Instances {
+  void (*untraced)(FusedArgs);
+  void (*traced)(FusedArgs, long long*);
+};
+
+Instances instances(bool wide) {
+  if (wide) return {fused_kernel_wide, fused_kernel_traced_wide};
+  return {fused_kernel, fused_kernel_traced};
+}
+
+int blocks_for(int tasks, bool wide, int device, cudaError_t* err) {
+  int per_sm = 0, traced_per_sm = 0, sms = 0, coop = 0;
   *err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (*err != cudaSuccess) return 0;
   if (!coop) {
@@ -199,20 +233,26 @@ int blocks_for(int tasks, int device, cudaError_t* err) {
   }
   *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (*err != cudaSuccess) return 0;
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_kernel,
+  const Instances k = instances(wide);
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.untraced,
                                                        kThreads, 0);
   if (*err != cudaSuccess) return 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&traced_per_sm,
+                                                       k.traced, kThreads, 0);
+  if (*err != cudaSuccess) return 0;
+  if (traced_per_sm < per_sm) per_sm = traced_per_sm;
   const long long cap = static_cast<long long>(per_sm) * sms;
   return static_cast<int>(tasks < cap ? tasks : cap);
 }
 
 }  // namespace
 
-// The grid the launch below uses for `tasks` = G*W tasks (0 on error).
-extern "C" int taskbench_fused_blocks(int tasks, int device) {
+// The grid the launch below uses for `tasks` = G*W tasks and `wide` (0 on
+// error).
+extern "C" int taskbench_fused_blocks(int tasks, int wide, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return 0;
-  return blocks_for(tasks, device, &err);
+  return blocks_for(tasks, wide != 0, device, &err);
 }
 
 extern "C" int taskbench_fused_launch(
@@ -220,12 +260,12 @@ extern "C" int taskbench_fused_launch(
     const float* mxu_w, float* wave, unsigned long long* words,
     float* scratch, long long* stats, long long scratch_stride, int kind,
     int G, int H, int W, int R, int P, int max_iters, int span, int size,
-    int device, void* stream) {
+    int wide, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tasks = G * W;
   if (tasks == 0 || H == 0) return 0;
-  const int blocks = blocks_for(tasks, device, &err);
+  const int blocks = blocks_for(tasks, wide != 0, device, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -238,16 +278,17 @@ extern "C" int taskbench_fused_launch(
                  R,       P,     max_iters, span, size,
                  taskbench::wait_timeout_ns(kind, H, per_cta, max_iters,
                                             span, size)};
+  const Instances k = instances(wide != 0);
   if (stats == nullptr) {
     void* params[] = {&args};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel),
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(k.untraced),
                                       dim3(blocks), dim3(kThreads), params, 0,
                                       s);
   } else {
     void* params[] = {&args, &stats};
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(fused_kernel_traced), dim3(blocks),
-        dim3(kThreads), params, 0, s);
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(k.traced),
+                                      dim3(blocks), dim3(kThreads), params, 0,
+                                      s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

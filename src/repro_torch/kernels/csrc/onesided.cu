@@ -70,6 +70,7 @@ struct OnesidedArgs {
   long long scratch_stride;
   unsigned long long* inbox;  // (ranks, H, n_off*cap, P) words, zero at launch
   int kind, ranks, H, local, R, P, n_off, cap, max_iters, span, size;
+  bool wide;  // memory body on float4s (bodies.cuh::run_body)
   unsigned long long wait_timeout_ns;  // deadlock guard (signal.cuh)
 };
 
@@ -129,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) onesided_kernel(OnesidedArgs a) {
       const float seed = __fmul_rn(static_cast<float>(acc), kFoldBlock);
       float* scr = a.scratch + static_cast<size_t>(task) * a.scratch_stride;
       const float res = run_body<kThreads>(a.kind, seed, n, scr, a.mxu_w,
-                                           a.span, a.size);
+                                           a.span, a.size, a.wide);
       write_payload<kThreads>(cur + static_cast<size_t>(task) * a.P, a.P, t,
                               task, base, combined, res);
       __syncthreads();  // s_acc is rewritten by the next task
@@ -181,8 +182,8 @@ extern "C" int taskbench_onesided_launch(
     const int* send_rows, const int* offsets, const float* mxu_w,
     float* waves, float* scratch, long long scratch_stride,
     unsigned long long* inbox, int kind, int ranks, int H, int local, int R,
-    int P, int n_off, int cap, int max_iters, int span, int size, int device,
-    void* stream) {
+    int P, int n_off, int cap, int max_iters, int span, int size, int wide,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ranks == 0 || local == 0 || H == 0) return 0;
@@ -198,7 +199,7 @@ extern "C" int taskbench_onesided_launch(
                     offsets, mxu_w, waves,    scratch,
                     scratch_stride, inbox,    kind,  ranks,
                     H,      local, R,         P,     n_off,
-                    cap,    max_iters, span,  size,
+                    cap,    max_iters, span,  size,  wide != 0,
                     taskbench::wait_timeout_ns(kind, H, local, max_iters,
                                                span, size)};
   void* params[] = {&args};

@@ -57,6 +57,15 @@ def taskbench_memory_plain(x: torch.Tensor,
     return win.reshape(x.shape)
 
 
+def wide_path(span: int, *addresses: int) -> bool:
+    """Whether the window walk may move 16-byte words (``wide`` in
+    ``csrc/bodies.cuh``): every window starts on a 16-byte boundary.  A
+    window starts at a row's address plus a whole number of windows, and
+    rows lie whole numbers of windows apart, so that holds when every base
+    address is a multiple of 16 and ``span`` (in f32 values) of 4."""
+    return span % 4 == 0 and all(a % 16 == 0 for a in addresses)
+
+
 def _check(x: torch.Tensor, iterations, span: int) -> None:
     if x.dtype != torch.float32 or x.ndim not in (1, 2):
         raise ValueError(f"x must be float32 (size,) or (C, size), got "
@@ -88,7 +97,9 @@ def taskbench_memory(x: torch.Tensor, iterations: Union[int, torch.Tensor],
     """The scratch after the window walk (out of place).
 
     A CPU tensor runs the plain version; a CUDA tensor launches K2 on the
-    current stream (and counts the launch in ``taskbench_memory.launches``).
+    current stream (and counts the launch in ``taskbench_memory.launches``,
+    and in ``taskbench_memory.wide_launches`` where the walk moves 16-byte
+    words, ``wide_path``).
     """
     _check(x, iterations, span)
     if x.device.type == "cpu":
@@ -98,15 +109,18 @@ def taskbench_memory(x: torch.Tensor, iterations: Union[int, torch.Tensor],
     out = torch.empty_like(x)
     rows = 1 if x.ndim == 1 else x.shape[0]
     per_row = isinstance(iterations, torch.Tensor)
+    wide = wide_path(int(span), x.data_ptr(), out.data_ptr())
     lib = _build.library()
     err = lib.taskbench_memory_launch(
         x.data_ptr(), iterations.data_ptr() if per_row else None,
         0 if per_row else int(iterations), out.data_ptr(), rows,
-        x.shape[-1], int(span), x.device.index,
+        x.shape[-1], int(span), int(wide), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "taskbench_memory")
     taskbench_memory.launches += 1
+    taskbench_memory.wide_launches += wide
     return out
 
 
 taskbench_memory.launches = 0
+taskbench_memory.wide_launches = 0

@@ -19,12 +19,14 @@ from repro_torch.backends.megakernel import (  # noqa: E402
     tables_from_numpy, taskbench_fused, taskbench_fused_plain,
     taskbench_onesided, taskbench_onesided_plain)
 from repro_torch.core import make_graph, pattern_names, replicate  # noqa: E402
+from repro_torch.core.graph import CHECKSUM_MOD  # noqa: E402
 from repro_torch.dist import plan_comm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (taskbench_compute,  # noqa: E402
                                  taskbench_compute_plain, taskbench_memory,
                                  taskbench_memory_plain)
 from repro_torch.kernels import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.bodies import FOLD_BLOCK, memory_geometry  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd import (_with_skip, ssd_chunked,  # noqa: E402
@@ -66,6 +68,110 @@ def test_k2_on_card_is_bitwise_with_plain(cuda, size, span, iterations):
     rows, its = rows.to(cuda), its.to(cuda)
     assert torch.equal(taskbench_memory(rows, its, span),
                        taskbench_memory_plain(rows, its, span))
+
+
+# bodies.cuh::memory_window: a group of the 16-byte walk is kThreads *
+# kWideUnroll float4s (256 * 8 * 4 values).  Windows within one group,
+# of whole groups, with a tail past them, and two the walk takes as floats
+# (a span that is not a multiple of 4, and of 1).
+WIDE_GROUP = 256 * 8 * 4
+WALK_SPANS = [16, WIDE_GROUP, WIDE_GROUP + 20, WIDE_GROUP + 21, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", WALK_SPANS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k2_wide_and_plain_walks_are_bitwise_with_plain(cuda, span, offset):
+    """K2 walks float4s where the wrapper finds every window on 16 bytes
+    and floats elsewhere (a view 4 bytes into its buffer, a span that is
+    not a multiple of 4): bitwise its plain version either way, with row
+    counts below, at and above the row's 3 windows (0, 1 and 2+ steps a
+    window), and counted in ``wide_launches`` on the first path only."""
+    rows, size = 4, 3 * span
+    buf = torch.rand(rows * size + 1,
+                     generator=torch.Generator().manual_seed(span)).to(cuda)
+    x = buf[offset:offset + rows * size].view(rows, size)
+    its = torch.tensor([0, 2, 3, 7], dtype=torch.int32, device=cuda)
+    wide = int(span % 4 == 0 and offset == 0)
+    for args in ((x, its, span), (x[1], 7, span)):
+        n, w = taskbench_memory.launches, taskbench_memory.wide_launches
+        got = taskbench_memory(*args)
+        assert (taskbench_memory.launches - n,
+                taskbench_memory.wide_launches - w) == (1, wide)
+        assert torch.equal(got, taskbench_memory_plain(*args))
+
+
+def memory_rows_left(wave, iters, kernel):
+    """The scratch rows a memory body leaves at the last timestep, from
+    plain parts: each task's row filled with 1 + acc * 2^-46 (acc from the
+    wave's base and combined slots) and walked by K2's plain version with
+    the task's last count."""
+    span, size, _ = memory_geometry(kernel)
+    acc = (wave[:, 3].to(torch.int64) - wave[:, 2].to(torch.int64)) \
+        % CHECKSUM_MOD
+    start = acc.to(torch.float32) * FOLD_BLOCK + 1.0
+    rows = start[:, None].expand(-1, size).contiguous()
+    its = iters.reshape(-1).clamp(0, kernel.iterations).to(torch.int32)
+    return taskbench_memory_plain(rows, its, span)
+
+
+def with_scratch(monkeypatch, call, size):
+    """``call()`` and the (tasks, size) scratch its wrapper allocated."""
+    made, empty = [], torch.empty
+
+    def kept(*args, **kwargs):
+        made.append(empty(*args, **kwargs))
+        return made[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", kept)
+        out = call()
+    scratch, = [t for t in made if t.dim() == 2 and t.shape[1] == size]
+    return out, scratch
+
+
+# (span, windows a row, iterations): 0, 1 and 2+ steps a window, and the
+# benchmark's memory cells (64 KiB windows, 2 MiB rows, 32 iterations)
+MEMORY_BODY_CASES = [(span, 3, its) for span in WALK_SPANS
+                     for its in (2, 3, 7)] + [(16384, 32, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span,nwin,iterations", MEMORY_BODY_CASES)
+def test_k3_k4_memory_body_is_bitwise_on_both_walks(cuda, monkeypatch, span,
+                                                    nwin, iterations):
+    """K3's and K4's memory body, on float4s where the span is a multiple
+    of 4 (the wrappers' scratch is aligned) and on floats elsewhere: the
+    wave bitwise their plain versions', every task's scratch row bitwise
+    the plain fill and walk, and counted in ``wide_launches`` on the first
+    path only."""
+    g = make_graph(width=8, height=4, pattern="stencil", kernel="memory",
+                   iterations=iterations, span_bytes=4 * span,
+                   scratch_bytes=4 * span * nwin)
+    assert memory_geometry(g.kernel) == (span, span * nwin, nwin)
+    wide = int(span % 4 == 0)
+    tabs = tables_from_numpy(MegakernelBackend._tables(
+        [g], max(1, g.max_radix())), cuda)
+    kw = dict(kernel=g.kernel, height=g.height,
+              payload_elems=g.payload_elems)
+    n, w = taskbench_fused.launches, taskbench_fused.wide_launches
+    got, scratch = with_scratch(
+        monkeypatch, lambda: taskbench_fused(*tabs, ngraphs=1, **kw),
+        span * nwin)
+    assert (taskbench_fused.launches - n,
+            taskbench_fused.wide_launches - w) == (1, wide)
+    assert torch.equal(got, taskbench_fused_plain(*tabs, ngraphs=1, **kw))
+    assert torch.equal(scratch, memory_rows_left(got, tabs[2][-1], g.kernel))
+
+    tabs = onesided_tables(g, 4, cuda)
+    n, w = taskbench_onesided.launches, taskbench_onesided.wide_launches
+    got, scratch = with_scratch(
+        monkeypatch, lambda: taskbench_onesided(*tabs, **kw), span * nwin)
+    assert (taskbench_onesided.launches - n,
+            taskbench_onesided.wide_launches - w) == (1, wide)
+    assert torch.equal(got, taskbench_onesided_plain(*tabs, **kw))
+    assert torch.equal(scratch,
+                       memory_rows_left(got, tabs[2][:, -1], g.kernel))
 
 
 @pytest.mark.gpu
@@ -417,7 +523,8 @@ def test_k3_grid_stride_matches_plain(cuda, pattern):
     timestep, t outermost, the order the dependency waits rely on.  At
     width 200 the random pattern has more than 32 dependency slots, which
     warp_combine loads itself past its lanes' first ones."""
-    blocks = _build.library().taskbench_fused_blocks(1 << 20, cuda.index or 0)
+    blocks = _build.library().taskbench_fused_blocks(1 << 20, 0,
+                                                     cuda.index or 0)
     g = make_graph(width=200, height=8, pattern=pattern, kernel="compute",
                    iterations=5, imbalance=0.5,
                    **({"radix": 5} if pattern == "spread" else {}))
@@ -485,7 +592,7 @@ def test_traced_k3_is_bitwise_with_untraced_and_counts(cuda, cell):
                                            "fused.launch"]
     c = {k.name: k.values for k in rec.counters}
     assert list(c) == list(K3_COUNTERS)
-    blocks = fused_blocks(g.width, cuda.index or 0)
+    blocks = fused_blocks(g.width, cuda.index or 0, cell == "memory")
     assert all(len(v) == blocks for v in c.values())
     wait, task, late = (c[k] for k in K3_COUNTERS)
     per_cta = g.height * -(-g.width // blocks)

@@ -29,14 +29,15 @@ from repro.kernels import bodies as ref_bodies  # noqa: E402
 from repro.kernels import ops  # noqa: E402
 import repro.core as rc  # noqa: E402
 from repro_torch.backends.megakernel import (  # noqa: E402
-    MegakernelBackend, scratch_elems, tables_from_numpy, taskbench_fused,
-    taskbench_fused_plain)
+    MegakernelBackend, _wide, scratch_elems, tables_from_numpy,
+    taskbench_fused, taskbench_fused_plain)
 from repro_torch.core import make_graph, replicate  # noqa: E402
 from repro_torch.core.kernel_ref import (COMPUTE_C, MEM_BIAS,  # noqa: E402
                                          MEM_SCALE, run_kernel_ref)
 from repro_torch.kernels import (_build, bodies, taskbench_compute,  # noqa: E402
                                  taskbench_compute_plain, taskbench_memory,
                                  taskbench_memory_plain)
+from repro_torch.kernels.memory import wide_path  # noqa: E402
 
 COMPUTE_CASES = [(8, 12), (16, 40), (32, 7)]      # tests/test_kernels.py
 MEMORY_CASES = [(1024, 128, 7), (2048, 256, 0), (512, 512, 9)]
@@ -154,6 +155,51 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
                     payload_elems=g.payload_elems)
     assert (taskbench_compute.launches, taskbench_memory.launches,
             taskbench_fused.launches) == before
+
+
+# the benchmark's memory cells (portbench/configs/stencil-memory.json):
+# 64 KiB windows of 2 MiB rows
+BENCH_SPAN, BENCH_SIZE = 16384, 524288
+
+
+@pytest.mark.parametrize("span,x_off,out_off,wide", [
+    pytest.param(BENCH_SPAN, 0, 0, True, id="benchmark"),
+    pytest.param(BENCH_SPAN, 4, 0, False, id="x-4-bytes-off"),
+    pytest.param(BENCH_SPAN, 0, 4, False, id="out-4-bytes-off"),
+    pytest.param(BENCH_SPAN, 8, 8, False, id="8-bytes-off"),
+    pytest.param(BENCH_SPAN, 16, 48, True, id="16-bytes-off"),
+    pytest.param(BENCH_SPAN + 2, 0, 0, False, id="span-mod-4-is-2"),
+    pytest.param(BENCH_SPAN + 1, 0, 0, False, id="span-odd"),
+    pytest.param(1, 0, 0, False, id="span-1"),
+    pytest.param(4, 0, 0, True, id="span-4"),
+    pytest.param(BENCH_SIZE, 0, 0, True, id="one-window-a-row"),
+])
+def test_wide_path_needs_every_window_on_16_bytes(span, x_off, out_off,
+                                                  wide):
+    base = 1 << 32
+    assert wide_path(span, base + x_off, base + (1 << 24) + out_off) is wide
+
+
+@pytest.mark.parametrize("kind,span_bytes,offset,wide", [
+    pytest.param("memory", 4 * BENCH_SPAN, 0, True, id="benchmark"),
+    pytest.param("memory", 4 * BENCH_SPAN, 1, False, id="row-4-bytes-off"),
+    pytest.param("memory", 4 * BENCH_SPAN + 4, 0, False, id="span-odd"),
+    pytest.param("memory", 4, 0, False, id="span-1"),
+    pytest.param("compute", 4 * BENCH_SPAN, 0, False, id="compute"),
+])
+def test_k3_k4_take_the_wide_memory_body_from_their_scratch(kind, span_bytes,
+                                                           offset, wide):
+    """``_wide``, K3's and K4's choice, on a scratch of two task rows laid
+    out as their wrappers lay it (rows ``scratch_elems`` apart), here on
+    the CPU's allocator, which aligns to at least 16 bytes."""
+    spec = rc.KernelSpec(kind=kind, span_bytes=span_bytes,
+                         scratch_bytes=4 * BENCH_SIZE)
+    span, size, _ = bodies.memory_geometry(spec)
+    assert size % span == 0
+    buf = torch.empty(2 * size + 4)
+    assert buf.data_ptr() % 16 == 0
+    scratch = buf[offset:offset + 2 * size].view(2, size)
+    assert _wide(spec, span, scratch) is wide
 
 
 @pytest.mark.parametrize("args,match", [
@@ -342,6 +388,16 @@ def test_sources_export_every_bound_function():
     text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
         assert re.search(rf'extern "C" [^(]*\b{name}\(', text), name
+
+
+def test_bound_functions_take_the_declared_arguments():
+    """Each exported function's C parameter list is as long as its ctypes
+    ``argtypes``: ctypes would pass a shorter list's tail as garbage."""
+    text = "".join(p.read_text() for p in _build.sources())
+    for name, (argtypes, _) in _build.SIGNATURES.items():
+        params = re.search(rf'extern "C" [^(]*\b{name}\(([^)]*)\)',
+                           text).group(1)
+        assert len(params.split(",")) == len(argtypes), name
 
 
 @pytest.mark.parametrize("src,replaces", [

@@ -73,15 +73,18 @@ def cubin(csrc: Path, out: Path) -> str:
 
 
 def kernel_sass(path: Path, traced: bool) -> list:
+    """The SASS of ``fused_kernel`` (or ``fused_kernel_traced``), found by
+    its mangled, length-prefixed name."""
     nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
     text = subprocess.run([str(nvcc / "cuobjdump"), "-sass", str(path)],
                           capture_output=True, text=True, check=True).stdout
+    name = "fused_kernel_traced" if traced else "fused_kernel"
     for block in text.split("Function : ")[1:]:
         head, _, body = block.partition("\n")
-        if "fused_kernel" in head and ("traced" in head) == traced:
+        if f"{len(name)}{name}E" in head:
             return [line.split("*/", 1)[-1].strip()
                     for line in body.splitlines() if "/*" in line]
-    raise RuntimeError(f"no fused_kernel (traced={traced}) in {path}")
+    raise RuntimeError(f"no {name} in {path}")
 
 
 def sass(parent: Path) -> dict:
