@@ -12,7 +12,34 @@ Everything a cell needs is found by name from ``BENCHMARK.json``:
   moves, as ``device_idle_share.memory``) without a file of its own is read
   by ``portbench/metrics/<name>.py``.
 
-So a cell or a metric is added with files and entries alone.
+So a cell or a metric is added with files and entries alone, and so is a
+configuration of another kind than a Task Bench graph (a decode loop, a
+train step): its own loop, its own plain reference, its own traffic.
+
+What ``run_cell`` reads of a loop (``LOOP_CONTRACT``), built as
+``Loop(config, traffic, seed, device)``:
+
+* ``graph``: the plain data that describes the work (sizes, seed), which
+  the reference and the metric readers read;
+* ``ngraphs``: the independent instances a run serves (graphs in flight,
+  sequences in a batch);
+* ``tasks_per_run``: the loop's unit of work, counted for one run: a task
+  for Task Bench, one generated token of one sequence for a decode loop;
+* ``run()``: one run of the timed path, returning what the reference
+  judges;
+* ``run_split(before, after)``: the same run with the two CUDA events
+  recorded on the stream around the program's device work;
+* ``launches()``: the hand-written kernels' launch counters by name;
+* ``kernel_calls()``: a call for each kernel timed alone (may be empty);
+* ``witness_run()``: one more run, returning ``(outputs, state)``, the
+  state the program leaves that the outputs do not show (or None).
+
+The reference, ``portbench/reference/<reference>.py``, gives
+``check(graph, outputs, ngraphs, state, device=...)``: each number
+compared beside its limit.  It runs after the loop is freed and the
+allocator's cache emptied, on the cell's device if it chooses, with TF32
+off, so a float32 reference computes in float32.
+
 ``run_cell`` takes the device as an argument, so the tests run the whole
 path on the CPU; ``run.py`` is the command and refuses to run without a
 card.
@@ -34,6 +61,8 @@ PKG = "portbench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 TRACE_SLICE_S = 0.25
 TRACE_SLICE_RUNS = 2
+LOOP_CONTRACT = ("graph", "ngraphs", "tasks_per_run", "run", "run_split",
+                 "launches", "kernel_calls", "witness_run")
 
 
 def process_seconds() -> Optional[float]:
@@ -133,6 +162,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         cell.root / PKG / "loops" / f"{cell.traffic['loop']}.py",
         "loop_" + cell.traffic["loop"])
     loop = loop_mod.Loop(cell.config, cell.traffic, seed, device)
+    missing = [n for n in LOOP_CONTRACT if not hasattr(loop, n)]
+    if missing:
+        raise TypeError(f"loop {cell.traffic['loop']!r} lacks {missing}")
     if loop_hook is not None:
         loop_hook(loop)
     t_built = time.perf_counter()
@@ -214,7 +246,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     ref_mod = load_module(
         cell.root / PKG / "reference" / f"{cell.config['reference']}.py",
         "reference_" + cell.config["reference"])
-    checks = ref_mod.check(graph, outputs, ngraphs, state)
+    checks = checked_without_tf32(ref_mod.check, graph, outputs, ngraphs,
+                                  state, device=device)
 
     result = {"correct": all(c["value"] <= c["limit"]
                              for c in checks.values()),
@@ -228,6 +261,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         result["power_limit"] = power_limit()
     result["checks"] = checks
     return result
+
+
+def checked_without_tf32(check, *args, **kwargs):
+    """``check(*args, **kwargs)`` with TF32 off for matrix products and
+    convolutions, so a float32 reference on the card computes in float32;
+    the flags are as they were afterwards."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    before = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        return check(*args, **kwargs)
+    finally:
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b
 
 
 def power_limit() -> str:

@@ -273,9 +273,12 @@ def compare_state(graph: Mapping, state, ngraphs: int) -> int:
     return bad
 
 
-def check(graph: Mapping, outputs, ngraphs: int, state) -> Dict[str, Dict]:
+def check(graph: Mapping, outputs, ngraphs: int, state,
+          device=None) -> Dict[str, Dict]:
     """Each number compared beside its limit: ``outputs`` are the runs'
-    returned payloads, ``state`` the state the last run's bodies left."""
+    returned payloads, ``state`` the state the last run's bodies left.
+    Every value is exact, so this computes on the host whatever
+    ``device`` the harness offers."""
     got = compare(final_wave(graph).numpy(), outputs, ngraphs)
     got["body_state_mismatches"] = compare_state(graph, state, ngraphs)
     return {k: {"value": v, "limit": LIMITS[k]} for k, v in got.items()}

@@ -37,7 +37,8 @@ def test_a_two_second_cell_runs_correct(workload, trace):
                          "device_idle_share.memory"}
     elif trace:
         assert names == {"k3_roofline", "task_mfu", "device_idle_share",
-                         "run_overhead_us"}
+                         "run_overhead_us", "host_launch_us",
+                         "k3_wait_share", "idle_host_share"}
         assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
         assert result["breakdown"]["device_ops"]
     else:

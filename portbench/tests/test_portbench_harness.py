@@ -3,21 +3,24 @@
 ``run_cell`` takes its device as an argument, so everything but the look
 for a card runs here: set-up through the port's own entry, the window, the
 metric readers and the check against the reference.  A cell and a metric
-added as files and entries alone run; a timed path broken underneath comes
-out not correct; nothing the harness loads is JAX or the JAX package.
+added as files and entries alone run, and so does a configuration of
+another kind (``another_kind/``); a timed path broken underneath, by each
+fault of the cell's test kind, comes out not correct; nothing the harness
+loads is JAX or the JAX package.
 """
 import json
 import subprocess
 import sys
 import time
 
-import numpy as np
 import pytest
 import torch
 
 from portbench import harness, trace
-from portbench.tests.conftest import REPO, copy_tree, workloads
-from repro_torch.core.graph import TaskGraph
+from portbench.tests.conftest import (ANOTHER, REPO, add_another_kind,
+                                      another_entries, cells, copy_tree,
+                                      faults, kind, workloads)
+from portbench.tests.kinds.taskbench import part_of_the_body
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 977
@@ -29,7 +32,7 @@ def run(root, workload, seconds=0.15, hook=None, seed=SEED):
                             time.perf_counter(), loop_hook=hook)
 
 
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", cells())
 def test_every_cell_runs_correct_on_the_cpu(small_tree, workload):
     r = run(small_tree, workload)
     assert r["correct"] is True, r["checks"]
@@ -39,8 +42,7 @@ def test_every_cell_runs_correct_on_the_cpu(small_tree, workload):
         if not m["name"].startswith("run_ms_p95"):
             assert r["metrics"][m["name"]]["value"] > 0
     assert list(r)[-1] == "checks"
-    assert all(c["value"] == 0 and c["limit"] == 0
-               for c in r["checks"].values())
+    assert kind(small_tree, workload).sound(r["checks"]), r["checks"]
 
 
 def test_a_cell_and_a_metric_added_as_data_alone_run(small_tree):
@@ -79,101 +81,125 @@ def test_a_cell_and_a_metric_added_as_data_alone_run(small_tree):
     assert harness.reader(cell, cell.per_layer[0]).read(ctx) == 3.0
 
 
-def deps_only(keep):
-    """Patch a graph's dependency tables so that column i keeps only the
-    dependencies ``keep(i, j, width)`` allows."""
-    table, mats = TaskGraph.dependency_table, TaskGraph.dependence_matrices
-
-    def dependency_table(self, radix=None):
-        idx, mask = table(self, radix)
-        mask = mask.copy()
-        H, W, R = idx.shape
-        for i in range(W):
-            for r in range(R):
-                if not keep(i, int(idx[0, i, r]), W):
-                    mask[:, i, r] = 0
-        return idx, mask
-
-    def dependence_matrices(self):
-        m = mats(self).copy()
-        W = m.shape[1]
-        for i in range(W):
-            for j in range(W):
-                if not keep(i, j, W):
-                    m[:, i, j] = False
-        return m
-
-    return dependency_table, dependence_matrices
-
-
-def part_of_the_body(what):
-    """Patch the plain task bodies (what the CPU path runs) to do part of
-    their work: ``half`` the iterations, or only the ``first`` part of
-    their state (the tile's first value, the scratch's first window)."""
-    from repro_torch.kernels import compute, memory
-
-    tile, walk = compute.taskbench_compute_plain, memory.taskbench_memory_plain
-
-    def compute_part(tiles, iters, max_iters):
-        if what == "half":
-            return tile(tiles, iters // 2, max_iters // 2)
-        out = tiles.clone()
-        out[:, 0, 0] = tile(tiles, iters, max_iters)[:, 0, 0]
-        return out
-
-    def memory_part(x, iterations, span):
-        if what == "half":
-            return walk(x, iterations // 2, span)
-        return walk(x, iterations.clamp(max=1), span)
-
-    return {(compute, "taskbench_compute_plain"): compute_part,
-            (memory, "taskbench_memory_plain"): memory_part}
+def test_a_configuration_of_another_kind_is_added_as_files_and_entries_alone(
+        tmp_path):
+    """The configuration of another kind (``another_kind/``: a config with a
+    stated cut, a traffic mix naming its own loop, the loop, its plain
+    reference and its test kind) is new files and new entries: every file
+    and entry of the benchmark stays as it was, and the harness runs the
+    new cell at its own size, correct."""
+    root = add_another_kind(copy_tree(tmp_path))
+    pb, new = REPO / "portbench", []
+    for f in sorted((root / "portbench").rglob("*")):
+        rel = f.relative_to(root / "portbench")
+        if not f.is_file() or "__pycache__" in rel.parts:
+            continue
+        if (pb / rel).is_file():
+            assert f.read_bytes() == (pb / rel).read_bytes(), rel
+        else:
+            new.append(str(rel))
+    assert sorted(new) == sorted(
+        str(f.relative_to(ANOTHER)) for f in ANOTHER.rglob("*")
+        if f.is_file() and f.name != "entries.json"
+        and "__pycache__" not in f.parts)
+    assert {"configs/t5-ffn-swiglu.json", "traffic/ffn-rows64.json",
+            "loops/ffn_rows.py", "reference/ffn_swiglu.py",
+            "tests/kinds/ffn_swiglu.py"} <= set(new)
+    before = json.loads((REPO / "BENCHMARK.json").read_text())
+    after = json.loads((root / "BENCHMARK.json").read_text())
+    added = another_entries()
+    assert set(after) == set(before)
+    for key in before:
+        assert after[key] == (before[key] + added[key] if key in added
+                              else before[key]), key
+    workload = added["workloads"][0]["name"]
+    cell = harness.resolve(workload, root)
+    assert cell.config["reference"] not in {
+        harness.resolve(w, root).config["reference"] for w in workloads()}
+    assert cell.config["reduced"] == ["num_layers"]
+    r = run(root, workload)
+    assert r["correct"] is True, r["checks"]
+    assert r["metrics"]["tasks_per_s.ffn"]["value"] > 0
+    assert r["checks"]["max_err_over_scale"]["value"] == 0
 
 
-FAULTS = {
-    # a step that returns its state unchanged: the body never advances
-    "state_unchanged": "body",
-    # every body runs half its iterations
-    "half_iterations": "half",
-    # half the columns' dependencies left out of the combine
-    "half_left_out": lambda i, j, W: i < W // 2,
-    # the exchange between columns left out: each keeps only its own
-    "no_exchange": lambda i, j, W: i == j,
-    # one answer altered where it is produced
-    "answer_altered": "flip",
-}
+def test_every_loop_in_use_has_the_names_run_cell_reads(small_tree):
+    assert harness.LOOP_CONTRACT == (
+        "graph", "ngraphs", "tasks_per_run", "run", "run_split",
+        "launches", "kernel_calls", "witness_run")
+    missing = {}
+    for w in cells():
+        cell = harness.resolve(w, small_tree)
+        name = cell.traffic["loop"]
+        if name in missing:
+            continue
+        loop = harness.load_module(
+            small_tree / "portbench" / "loops" / f"{name}.py",
+            "loop_" + name).Loop(cell.config, cell.traffic, SEED, CPU)
+        missing[name] = [n for n in harness.LOOP_CONTRACT
+                         if not hasattr(loop, n)]
+        assert loop.tasks_per_run > 0 and loop.ngraphs >= 1
+        assert isinstance(loop.launches(), dict)
+        assert isinstance(loop.kernel_calls(), dict)
+    assert set(missing) == {"graph_runs", "ffn_rows"}
+    assert not any(missing.values()), missing
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("workload", workloads())
+def test_a_loop_without_a_name_run_cell_reads_is_refused(small_tree):
+    pb = small_tree / "portbench"
+    (pb / "loops" / "partial.py").write_text(
+        "class Loop:\n"
+        "    def __init__(self, config, traffic, seed, device):\n"
+        "        self.graph, self.ngraphs, self.tasks_per_run = {}, 1, 1\n"
+        "    def run(self):\n"
+        "        return []\n")
+    (pb / "traffic" / "partial.json").write_text('{"loop": "partial"}')
+    spec = json.loads((small_tree / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": "partial", "chips": 1, "why": "x",
+                              "config": "stencil-compute",
+                              "traffic": "partial"})
+    (small_tree / "BENCHMARK.json").write_text(json.dumps(spec))
+    with pytest.raises(TypeError, match="run_split.*witness_run"):
+        run(small_tree, "partial")
+
+
+def test_the_reference_gets_the_device_with_tf32_off(small_tree,
+                                                      monkeypatch):
+    """``run_cell`` hands the reference its device and turns TF32 off for
+    the check alone; the Task Bench reference's numbers are the four."""
+    seen, load = {}, harness.load_module
+
+    def spying(path, name):
+        mod = load(path, name)
+        if name.startswith("reference_"):
+            check = mod.check
+
+            def spy(*args, **kwargs):
+                seen["device"] = kwargs.get("device")
+                seen["tf32"] = (torch.backends.cuda.matmul.allow_tf32,
+                                torch.backends.cudnn.allow_tf32)
+                return check(*args, **kwargs)
+
+            mod.check = spy
+        return mod
+
+    monkeypatch.setattr(harness, "load_module", spying)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    r = run(small_tree, "stencil-memory.graph")
+    assert seen == {"device": CPU, "tf32": (False, False)}
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32
+    assert r["correct"] is True
+    assert {k: c["limit"] for k, c in r["checks"].items()} == {
+        "payload_exact_mismatches": 0, "payload_kernel_mismatches": 0,
+        "runs_malformed": 0, "body_state_mismatches": 0}
+
+
+@pytest.mark.parametrize("workload,fault", faults())
 def test_a_broken_timed_path_is_not_correct(small_tree, monkeypatch,
                                             workload, fault):
-    what = FAULTS[fault]
-    hook = None
-    if what == "body":
-        from repro_torch.kernels import compute, memory
-        monkeypatch.setattr(compute, "compute_step", lambda a: a + 0.0)
-        monkeypatch.setattr(memory, "memory_step", lambda a: a + 0.0)
-    elif what == "half":
-        for (mod, name), fn in part_of_the_body("half").items():
-            monkeypatch.setattr(mod, name, fn)
-    elif what == "flip":
-        def hook(loop):
-            run_once, calls = loop.run, [0]
-
-            def run_flipped():
-                out = run_once()
-                calls[0] += 1
-                if calls[0] == 4:  # set-up makes 2 runs: a window's run
-                    bits = out[0].view(np.uint32)
-                    bits[SEED % out[0].shape[0], SEED % 5] ^= np.uint32(1)
-                return out
-
-            loop.run = run_flipped
-    else:
-        table, mats = deps_only(what)
-        monkeypatch.setattr(TaskGraph, "dependency_table", table)
-        monkeypatch.setattr(TaskGraph, "dependence_matrices", mats)
+    hook = kind(small_tree, workload).FAULTS[fault](monkeypatch)
     r = run(small_tree, workload, hook=hook)
     assert r["correct"] is False, (fault, r["checks"])
 

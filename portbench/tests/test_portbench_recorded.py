@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from portbench import harness, recorded, trace
-from portbench.tests.conftest import workloads
+from portbench.tests.conftest import cells
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 977
@@ -90,7 +90,7 @@ def test_a_pass_is_none_without_a_card_or_a_recorder(monkeypatch):
     assert recorded.pass_a(ctx) is None and recorded.pass_b(ctx) is None
 
 
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", cells())
 def test_the_cpu_cell_path_reports_none_of_the_new_entries(small_tree,
                                                            workload):
     cell = harness.resolve(workload, small_tree)
