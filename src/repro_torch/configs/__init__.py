@@ -5,10 +5,14 @@ the attention-free Mamba-2 stack, the RG-LRU + local-attention hybrid
 RecurrentGemma-2B, the four dense attention models (Yi-6B, Qwen1.5-0.5B,
 Qwen2-72B and Minitron-8B) and the two with a modality frontend, whose
 inputs arrive as embeddings: the Qwen2-VL-2B text backbone and the
-encoder-only HuBERT X-Large.
+encoder-only HuBERT X-Large.  ``PORT_ARCHS`` are the port's own, which the
+reference package lacks: Granite 4.0-H Small, Mamba-2 and NoPE attention
+mixers each followed by routed and shared experts, at one chip's
+expert-parallel share.
 """
 from . import (  # noqa: F401
     arctic_480b,
+    granite_4p0_h_small,
     hubert_xlarge,
     mamba2_2p7b,
     minitron_8b,
@@ -23,6 +27,7 @@ from .base import (
     SHAPES,
     InputShape,
     ModelConfig,
+    PortConfig,
     config_names,
     get_config,
     reduced,
@@ -34,3 +39,4 @@ ALL_ARCHS = [
     "yi-6b", "qwen1.5-0.5b", "qwen2-72b", "minitron-8b", "qwen2-vl-2b",
     "hubert-xlarge",
 ]
+PORT_ARCHS = ["granite-4.0-h-small"]

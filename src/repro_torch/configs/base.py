@@ -91,6 +91,24 @@ class ModelConfig:
         return _count_params(self, active_only=True)
 
 
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A ``ModelConfig`` with settings the reference's schema lacks; at
+    their defaults it behaves as the ``ModelConfig`` would.  The model code
+    reads them with those defaults from either class."""
+    position_embedding: str = "rope"    # rope | nope (no positions at all)
+    attention_scale: Optional[float] = None  # None: 1/sqrt(head_dim)
+    # the experts [lo, hi) this chip holds of ``num_experts`` (the router
+    # stays num_experts wide); None: all of them
+    experts_held: Optional[Tuple[int, int]] = None
+    ssm_conv_bias: bool = False
+    # Granite's scalings: the embeddings times, each residual branch
+    # times, the logits divided by
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:
     d, f = cfg.d_model, cfg.d_ff
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -100,12 +118,14 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
             total += d * (H + 2 * Hkv) * Dh + H * Dh * d  # qkvo
         if kind == "attn" or kind == "local_attn":
             total += 3 * d * f if cfg.mlp_gated else 2 * d * f
-        elif kind == "moe":
-            e = cfg.num_experts_per_tok if active_only else cfg.num_experts
+        elif kind in ("moe", "ssd_moe"):
+            held = getattr(cfg, "experts_held", None)
+            e = cfg.num_experts_per_tok if active_only else (
+                cfg.num_experts if held is None else held[1] - held[0])
             total += e * 3 * d * f
             if cfg.dense_residual_ff:
                 total += 3 * d * cfg.dense_residual_ff
-        elif kind == "ssd":
+        if kind in ("ssd", "ssd_moe"):
             d_in = cfg.ssm_expand * d
             ng, st = cfg.ssm_ngroups, cfg.ssm_state
             total += d * (2 * d_in + 2 * ng * st + d_in // cfg.ssm_headdim)
@@ -162,6 +182,10 @@ def reduced(cfg: ModelConfig, seq_ok: bool = True) -> ModelConfig:
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16)
     if cfg.lru_width:
         changes.update(lru_width=128)
+    if getattr(cfg, "experts_held", None) is not None:
+        # one period of the pattern; 2 of 8 experts held, top-3
+        changes.update(num_layers=len(cfg.block_pattern), num_experts=8,
+                       num_experts_per_tok=3, experts_held=(0, 2))
     new = replace(cfg, **changes)
     object.__setattr__(new, "_registered", False)
     return new

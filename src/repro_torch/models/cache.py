@@ -6,7 +6,7 @@
           and attention or MoE blocks with ``cfg.window``, whenever the
           window W is below ``max_len``)
   ssm   - Mamba-2 conv tails (B, K-1, d_inner) and (B, K-1, 2GN) and the
-          float32 SSD state (B, H, P, N)
+          float32 SSD state (B, H, P, N) (``ssd`` and ``ssd_moe`` blocks)
   rglru - conv tail (B, K-1, w) and the float32 recurrent state (B, w)
 The attention kinds carry a cursor ``pos``: a 0-d tensor (every row at the
 same depth) or, with ``per_slot_pos``, one a batch slot (B,), and an
@@ -63,7 +63,7 @@ class LayerCache:
 def init_layer_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                      per_slot_pos: bool = False, device=None) -> LayerCache:
     """A zeroed cache for one layer of block kind ``kind``."""
-    if kind == "ssd":
+    if kind in ("ssd", "ssd_moe"):
         d_in = cfg.ssm_expand * cfg.d_model
         H, G, N = d_in // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
         K = cfg.ssm_conv

@@ -285,7 +285,9 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     kernel_impl: str = "auto") -> torch.Tensor:
     """GQA attention; returns the layer output and updates ``cache`` (a
     ``full`` or ``ring`` LayerCache) in place: K/V rows written and the
-    cursor ``pos`` advanced on the device.
+    cursor ``pos`` advanced on the device.  RoPE unless
+    ``cfg.position_embedding`` is ``"nope"``; the softmax scale is
+    ``cfg.attention_scale`` where set, else 1/sqrt(head_dim).
 
     The branches of the reference (``repro/models/layers.py``):
       - no cache: attention over the sequence (K5 on a static offset 0);
@@ -310,8 +312,9 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    if getattr(cfg, "position_embedding", "rope") == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     q = constrain(q, "batch", "seq_full", "act_heads", None)
     k = constrain(k, "batch", "seq_full", "kv_heads_act", None)
 
@@ -332,6 +335,7 @@ def apply_attention(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     def attend(kk, vv, causal, q_off, kv_pos):
         return ops.attention(q, kk, vv, causal=causal, window=window,
                              q_offset=q_off, kv_positions=kv_pos,
+                             scale=getattr(cfg, "attention_scale", None),
                              impl=kernel_impl)
 
     if cache is None:

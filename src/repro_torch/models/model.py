@@ -7,7 +7,11 @@ Block kinds (cycled through ``cfg.block_pattern``):
   moe        - attention (``cfg.window``) + top-k MoE FFN, plus Arctic's
                dense MLP in parallel (``cfg.dense_residual_ff``)
   ssd        - Mamba-2 mixer block (no MLP)
+  ssd_moe    - Mamba-2 mixer block + the ``moe`` kind's FFN (Granite 4.0-H)
   rglru      - Griffin recurrent block + MLP
+Each residual branch is scaled by ``cfg.residual_multiplier`` where it is
+not 1, the embeddings by ``cfg.embedding_multiplier`` and the logits
+divided by ``cfg.logits_scaling`` (Granite's scalings).
 A config with a modality frontend (Qwen2-VL's vision, HuBERT's audio)
 takes its inputs as embeddings (``forward(..., embeds=)``).  ``forward``
 runs the MoE dense path; with ``return_aux`` it also returns the MoE aux
@@ -42,7 +46,7 @@ from .moe import apply_moe, init_moe
 from .rglru import apply_rglru_block, init_rglru_block
 from .ssm import apply_ssd_block, init_ssd_block
 
-KINDS = ("attn", "local_attn", "moe", "ssd", "rglru")
+KINDS = ("attn", "local_attn", "moe", "ssd", "ssd_moe", "rglru")
 REMATS = ("none", "full", "selective")
 _SAVED_BY_SELECTIVE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -91,13 +95,18 @@ def init_block(gen, kind: str, cfg, dtype, device,
             "norm2": norm(),
             "mlp": L.init_mlp(gen, cfg, dtype, device, layers, **kw),
         }
-    if kind == "moe":
-        p = {
-            "norm1": norm(),
-            "attn": L.init_attention(gen, cfg, dtype, device, layers, **kw),
-            "norm2": norm(),
-            "moe": init_moe(gen, cfg, dtype, device, layers, **kw),
-        }
+    if kind in ("moe", "ssd_moe"):
+        if kind == "moe":
+            p = {
+                "norm1": norm(),
+                "attn": L.init_attention(gen, cfg, dtype, device, layers,
+                                         **kw),
+            }
+        else:
+            p = {"ssd": init_ssd_block(gen, cfg, dtype, device, layers,
+                                       **kw)}
+        p["norm2"] = norm()
+        p["moe"] = init_moe(gen, cfg, dtype, device, layers, **kw)
         if cfg.dense_residual_ff:
             p["mlp"] = L.init_mlp(gen, cfg, dtype, device, layers,
                                   d_ff=cfg.dense_residual_ff, **kw)
@@ -180,29 +189,31 @@ def apply_block(p: Dict, kind: str, x: torch.Tensor, cfg,
 
 
 def _block(p: Dict, kind: str, x: torch.Tensor, cfg, positions: torch.Tensor,
-           cache: Optional[LayerCache] = None):
+           cache: Optional[LayerCache] = None,
+           held_pairs: Optional[torch.Tensor] = None):
     """``apply_block`` and the MoE block's aux losses: (x', new, (lb, z)),
-    the losses None for any other block."""
+    the losses None for any other block.  ``held_pairs``: the held
+    experts' counter (``moe.apply_moe``)."""
     new, aux = None, None
     x = constrain(x, "batch", "seq", None)
     if kind in ("attn", "local_attn", "moe"):
         window = cfg.local_window if kind == "local_attn" else cfg.window
         h = L.seq_full(L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps))
-        x = x + L.apply_attention(p["attn"], h, cfg, positions, window=window,
-                                  cache=cache, kernel_impl=cfg.kernel_impl)
-        h = L.seq_full(L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps))
+        x = x + _branch(L.apply_attention(
+            p["attn"], h, cfg, positions, window=window, cache=cache,
+            kernel_impl=cfg.kernel_impl), cfg)
         if kind == "moe":
-            m, metrics = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl)
-            aux = (metrics["moe_lb_loss"], metrics["moe_z_loss"])
-            if "mlp" in p:  # Arctic: a dense MLP in parallel
-                m = m + L.apply_mlp(p["mlp"], h, cfg)
-            x = x + m
+            x, aux = _moe_ffn(p, x, cfg, held_pairs)
         else:
+            h = L.seq_full(L.apply_norm(p["norm2"], x, cfg.norm,
+                                        cfg.norm_eps))
             x = x + L.apply_mlp(p["mlp"], h, cfg)
-    elif kind == "ssd":
+    elif kind in ("ssd", "ssd_moe"):
         a, new = apply_ssd_block(p["ssd"], x, cfg, cache=cache,
                                  kernel_impl=cfg.kernel_impl)
-        x = x + a
+        x = x + _branch(a, cfg)
+        if kind == "ssd_moe":
+            x, aux = _moe_ffn(p, x, cfg, held_pairs)
     elif kind == "rglru":
         a, new = apply_rglru_block(p["rec"], x, cfg, cache=cache)
         x = x + a
@@ -211,6 +222,26 @@ def _block(p: Dict, kind: str, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         raise ValueError(kind)
     return constrain(x, "batch", "seq", None), new, aux
+
+
+def _branch(a: torch.Tensor, cfg) -> torch.Tensor:
+    """A residual branch scaled by ``cfg.residual_multiplier`` (unless 1)."""
+    r = getattr(cfg, "residual_multiplier", 1.0)
+    return a if r == 1.0 else a * r
+
+
+def _moe_ffn(p: Dict, x: torch.Tensor, cfg,
+             held_pairs: Optional[torch.Tensor] = None):
+    """The ``moe`` kind's FFN and its residual: x + the experts (with
+    Arctic's dense MLP or Granite's shared expert in parallel) on the
+    normed x; returns (x', (lb, z))."""
+    h = L.seq_full(L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps))
+    m, metrics = apply_moe(p["moe"], h, cfg, impl=cfg.moe_impl,
+                           held_pairs=held_pairs)
+    if "mlp" in p:  # a dense MLP in parallel
+        m = m + L.apply_mlp(p["mlp"], h, cfg)
+    return x + _branch(m, cfg), (metrics["moe_lb_loss"],
+                                 metrics["moe_z_loss"])
 
 
 def _selective_contexts():
@@ -257,7 +288,8 @@ def _write(cache: LayerCache, new: Dict, scan: bool = True) -> None:
 def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             caches: Optional[Union[LayerCache, List[LayerCache]]] = None,
-            pos=0, last_token_only: bool = False, return_aux: bool = False):
+            pos=0, last_token_only: bool = False, return_aux: bool = False,
+            held_pairs: Optional[torch.Tensor] = None):
     """(B, S) tokens, or (B, S, d) ``embeds`` (a modality frontend's stub
     inputs, cast to the model's dtype in place of the embedding lookup) ->
     ((B, S or 1, vocab) logits, caches), and with ``return_aux`` a third
@@ -268,7 +300,8 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
     the first token, an int, a 0-d tensor or (B,) per-slot depths; it sets
     the RoPE positions (attention caches keep their own cursors).  A
     cacheless forward that records gradients checkpoints each block under
-    ``cfg.remat``.
+    ``cfg.remat``.  ``held_pairs`` (an int64 device tensor) counts the
+    (token, held expert) pairs of a model with ``cfg.experts_held``.
     """
     check_supported(cfg)
     if (tokens is None) == (embeds is None):
@@ -279,6 +312,9 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
     else:
         h = L.apply_embedding(params["embed"], tokens)
         B, S = tokens.shape
+    mult = getattr(cfg, "embedding_multiplier", 1.0)
+    if mult != 1.0:
+        h = h * mult
     h = constrain(h, "batch", "seq", None)
     steps = torch.arange(S, device=h.device)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
@@ -298,7 +334,8 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
             h, new, aux = _remat_block(bp, pattern[i], h, cfg, positions)
         else:
             cache_i = per_layer[i] if per_layer is not None else None
-            h, new, aux = _block(bp, pattern[i], h, cfg, positions, cache_i)
+            h, new, aux = _block(bp, pattern[i], h, cfg, positions, cache_i,
+                                 held_pairs)
             if new is not None:
                 _write(cache_i, new, scan)
         if aux is not None:
@@ -308,7 +345,11 @@ def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,
     h = L.seq_full(L.apply_norm(params["final_norm"], h, cfg.norm,
                                 cfg.norm_eps))
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = constrain(L.apply_unembed(head, h), "batch", "seq", "vocab_out")
+    logits = L.apply_unembed(head, h)
+    scaling = getattr(cfg, "logits_scaling", 1.0)
+    if scaling != 1.0:
+        logits = logits / scaling
+    logits = constrain(logits, "batch", "seq", "vocab_out")
     if return_aux:
         return logits, caches, {"moe_lb_loss": lb, "moe_z_loss": zl}
     return logits, caches

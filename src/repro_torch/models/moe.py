@@ -47,6 +47,16 @@ expert at a time upcast on the CPU, whose build has no kernel for it).
 Routing is capture-safe (a ``scatter_`` of the gates, no ``F.one_hot``,
 which checks its indices on the host), and every sum is in a fixed order
 (no atomics), so a replayed decode step gives an eager step's tokens.
+
+Held experts (``cfg.experts_held = (lo, hi)``, one chip's expert-parallel
+share): the layer stores experts ``lo..hi-1`` alone (unsplit, ``sub`` 1),
+routes over all ``num_experts`` and adds, for each token, only its held
+experts' gated outputs: a token routed to none of them gets nothing from
+the routed experts.  The dense product runs over the held experts, with
+zero gates where a pair was not routed here, so the shapes are fixed and
+nothing is dropped.  Given ``held_pairs`` (an int64 tensor on the
+device), the layer adds the (token, held expert) pairs it served to it,
+with no host sync (the engine's ``moe.held_pairs``).
 """
 from __future__ import annotations
 
@@ -81,9 +91,12 @@ def init_moe(gen, cfg, dtype, device, layers: Optional[int] = None,
              leaves: bool = False) -> Dict:
     """The float32 router ``(d, E)`` and the expert weights stored as
     ``E_v`` virtual experts: ``w_gate``/``w_up`` ``(E_v, d, f_v)``,
-    ``w_down`` ``(E_v, f_v, d)`` (a leading layer dim with ``layers``)."""
+    ``w_down`` ``(E_v, f_v, d)`` (a leading layer dim with ``layers``);
+    with ``cfg.experts_held``, the held experts alone, unsplit."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    E_v, f_v, _ = virtual_experts(E, f)
+    held = getattr(cfg, "experts_held", None)
+    E_v, f_v, _ = (virtual_experts(E, f) if held is None
+                   else (held[1] - held[0], f, 1))
     lead = () if layers is None else (layers,)
 
     def dense(shape, fan_in, dt, axes):
@@ -181,7 +194,8 @@ def _ffn(blocks: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg, impl: str = "auto",
               ep_mode: Optional[str] = None,
-              grid: Optional["ExpertGrid"] = None
+              grid: Optional["ExpertGrid"] = None,
+              held_pairs: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d) -> (y, {"moe_lb_loss", "moe_z_loss"}).
 
@@ -191,7 +205,8 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, impl: str = "auto",
     ranks compute with the shards they hold, so ``p`` must be the layer
     the grid was built from (its fingerprint is checked on every call).
     ``ep_mode`` overrides ``cfg.ep_mode`` for the a2a path; ``None`` reads
-    the config.
+    the config.  ``held_pairs``: the dense path's counter of the pairs its
+    held experts serve (``cfg.experts_held``).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}; known: {IMPLS}")
@@ -205,27 +220,40 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, impl: str = "auto",
         if mode not in EP_MODES:
             raise ValueError(f"unknown ep_mode {mode!r}; known: {EP_MODES}")
         return _moe_a2a(p, x, cfg, grid, mode)
-    return _moe_dense(p, x, cfg)
+    return _moe_dense(p, x, cfg, held_pairs)
 
 
 # ------------------------------------------------------------- dense path
-def _moe_dense(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict]:
+def _moe_dense(p: Dict, x: torch.Tensor, cfg,
+               held_pairs: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict]:
     B, S, d = x.shape
     x = constrain(x, "batch", "seq_full", None)
-    y, lb, z = _dense_mix(p, x.reshape(B * S, d), cfg)
+    y, lb, z = _dense_mix(p, x.reshape(B * S, d), cfg, held_pairs)
     y = constrain(y.reshape(B, S, d).to(x.dtype), "batch", "seq", None)
     return y, {"moe_lb_loss": lb, "moe_z_loss": z}
 
 
-def _dense_mix(p: Dict, x2: torch.Tensor, cfg):
-    """x2 (N, d) -> (the gate-weighted sum of every expert's output, (N, d)
-    float32, before the cast to the activation type; lb loss; z loss)."""
+def _dense_mix(p: Dict, x2: torch.Tensor, cfg,
+               held_pairs: Optional[torch.Tensor] = None):
+    """x2 (N, d) -> (the gate-weighted sum of every (held) expert's output,
+    (N, d) float32, before the cast to the activation type; lb loss; z
+    loss).  With held experts, the pairs served are added to
+    ``held_pairs`` where given."""
     N, d = x2.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    E_v = p["w_gate"].shape[0]
-    sub = E_v // E
     gates, top_idx, pieces = _router(x2, p["router"], E, k)
     lb, z = _form_losses(pieces, E, k)
+    w = torch.zeros(N, E, dtype=torch.float32, device=x2.device)
+    w.scatter_(1, top_idx, gates)  # (N, E): each row's gates at its experts
+    held = getattr(cfg, "experts_held", None)
+    if held is not None:
+        lo, hi = held
+        w = w[:, lo:hi]  # zero where a pair was not routed here
+        if held_pairs is not None:
+            held_pairs.add_(((top_idx >= lo) & (top_idx < hi)).sum())
+    E_h, E_v = w.shape[1], p["w_gate"].shape[0]
+    sub = E_v // E_h
 
     xe = x2.expand(E_v, N, d)
     g = _bmm_f32(xe, p["w_gate"])
@@ -233,10 +261,8 @@ def _dense_mix(p: Dict, x2: torch.Tensor, cfg):
     h = _act(cfg.act, g).mul_(u).to(x2.dtype)
     del g, u
     y_v = _bmm_f32(h, p["w_down"])  # (E_v, N, d) float32
-    y_e = y_v if sub == 1 else y_v.view(E, sub, N, d).sum(1)  # (E, N, d)
+    y_e = y_v if sub == 1 else y_v.view(E_h, sub, N, d).sum(1)
 
-    w = torch.zeros(N, E, dtype=torch.float32, device=x2.device)
-    w.scatter_(1, top_idx, gates)  # (N, E): each row's gates at its experts
     y = torch.bmm(w[:, None, :], y_e.transpose(0, 1))[:, 0]
     return y, lb, z
 

@@ -1,7 +1,8 @@
 """Mamba-2 block (SSD mixer), the port of ``repro.models.ssm``.
 
   norm -> in-projections (z, x, B|C, dt)
-       -> causal depthwise conv on x and B|C (K = ``ssm_conv``)
+       -> causal depthwise conv on x and B|C (K = ``ssm_conv``), plus a
+          bias a channel where ``cfg.ssm_conv_bias`` (Granite 4.0-H)
        -> SiLU, softplus dt, A = -exp(A_log)
        -> SSD: K6 (``ops.ssd``) over a prompt, one scan step
           (``ops.ssd_decode_step``) for a decode token
@@ -56,7 +57,7 @@ def init_ssd_block(gen: torch.Generator, cfg, dtype, device,
     u = uniform(0.0, 1.0)
     dt0 = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
-    return {
+    p = {
         "norm": init_norm(d, dtype, cfg.norm, device, layers, leaves=leaves),
         "wz": dense((d, d_in), d, ("embed", "ssm_inner")),
         "wx": dense((d, d_in), d, ("embed", "ssm_inner")),
@@ -74,20 +75,36 @@ def init_ssd_block(gen: torch.Generator, cfg, dtype, device,
                        ("ssm_inner",)),
         "wo": dense((d_in, d), d_in, ("ssm_inner", "embed")),
     }
+    if getattr(cfg, "ssm_conv_bias", False):
+        # nn.Conv1d's default: uniform in +-1/sqrt(fan_in), fan_in = K
+        bound = cfg.ssm_conv ** -0.5
+        for name, width, axes in (("conv_x_bias", d_in, ("ssm_inner",)),
+                                  ("conv_bc_bias", 2 * G * N, (None,))):
+            b = torch.empty(lead + (width,), dtype=torch.float32,
+                            device=device)
+            if not b.is_meta:
+                b.uniform_(-bound, bound, generator=gen)
+            p[name] = named(b.to(dtype), axes)
+    return p
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, C), w (K, C): depthwise causal conv, no bias, in float32."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, S, C), w (K, C), optional bias b (C,): depthwise causal conv in
+    float32, the bias added last."""
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x.float(), (0, 0, K - 1, 0))
     wf = w.float()
     out = xp[:, 0:S] * wf[0]
     for k in range(1, K):
         out = out + xp[:, k:k + S] * wf[k]
+    if b is not None:
+        out = out + b.float()
     return out.to(x.dtype)
 
 
-def _conv_step(x_t: torch.Tensor, state: torch.Tensor, w: torch.Tensor
+def _conv_step(x_t: torch.Tensor, state: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token conv: x_t (B, C); state (B, K-1, C) past inputs."""
     wins = torch.cat([state, x_t[:, None, :]], dim=1)  # (B, K, C)
@@ -95,6 +112,8 @@ def _conv_step(x_t: torch.Tensor, state: torch.Tensor, w: torch.Tensor
     out = wsf[:, 0] * wf[0]
     for k in range(1, w.shape[0]):
         out = out + wsf[:, k] * wf[k]
+    if b is not None:
+        out = out + b.float()
     return out.to(x_t.dtype), wins[:, 1:, :]
 
 
@@ -123,17 +142,18 @@ def apply_ssd_block(p: Dict, x: torch.Tensor, cfg,
 
     new = None
     decode = cache is not None and S == 1
+    bx, bbc = p.get("conv_x_bias"), p.get("conv_bc_bias")
     if decode:
-        xs1, conv_x = _conv_step(xs[:, 0], cache.conv_x, p["conv_x"])
-        bc1, conv_bc = _conv_step(bc[:, 0], cache.conv_bc, p["conv_bc"])
+        xs1, conv_x = _conv_step(xs[:, 0], cache.conv_x, p["conv_x"], bx)
+        bc1, conv_bc = _conv_step(bc[:, 0], cache.conv_bc, p["conv_bc"], bbc)
         xs, bc = xs1[:, None], bc1[:, None]
     else:
         if cache is not None:  # prefill: keep the conv tails for decode
             K = p["conv_x"].shape[0]
             conv_x = xs[:, S - (K - 1):, :]
             conv_bc = bc[:, S - (K - 1):, :]
-        xs = _causal_conv(xs, p["conv_x"])
-        bc = _causal_conv(bc, p["conv_bc"])
+        xs = _causal_conv(xs, p["conv_x"], bx)
+        bc = _causal_conv(bc, p["conv_bc"], bbc)
 
     xs = F.silu(xs)
     bc = F.silu(bc)

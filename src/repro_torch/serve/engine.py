@@ -25,8 +25,11 @@ Decode runs in one of two modes:
 
 The decode step of the engine's mode reads and writes fixed buffers: the
 next token a slot (``cur``), one int64 block holding the RoPE positions,
-budgets, eos ids, the chunk's (B, chunk_size) output, the step index and
-the live-step count, and the slot pool.  On a CUDA device the engine
+budgets, eos ids, the chunk's (B, chunk_size) output, the step index, the
+live-step count and the (token, held expert) pairs served (a model with
+``cfg.experts_held``), and the slot pool; with ``keep_logits``, also each
+step's last-token logits in a fixed (B, chunk_size, vocab) buffer
+(``logits``) a caller reads after the chunk.  On a CUDA device the engine
 captures that one step as a CUDA graph at construction (``program``, a
 ``backends.dataflow.CapturedProgram``), the counterpart of the reference's
 one compiled program a mode.  A chunk is then one host-to-device copy of
@@ -52,7 +55,14 @@ Both modes run the same ``model.forward`` step.  The attention layers'
 per-slot cursors stay on the device and advance in place each step; the
 host keeps a mirror of the positions it uploads once a chunk.
 ``engine.stats`` counts prefills / decode steps / chunk launches / host
-syncs / tokens generated.
+syncs / tokens generated; ``held_pairs`` is the last chunk's count of
+(token, held expert) pairs, read back in the chunk's one copy.
+
+While ``trace.recording()`` is on, a chunk is the span ``serve.chunk``
+over ``serve.upload`` (the block to the device), ``serve.replay`` (the
+steps) and ``serve.download`` (the one copy back), with the counter
+``moe.held_pairs`` under it where the model holds experts; an admission
+is ``serve.prefill``.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..backends.dataflow import CapturedProgram
 from ..dist.sharding import constrain
 from ..kernels.flash_attention import flash_attention
@@ -170,6 +181,8 @@ class ServeEngine:
       graphs: capture the decode step as a CUDA graph and replay it
         (default: on a CUDA device, where ``False`` runs it eagerly; the
         CPU has no graphs, and asking for them there raises).
+      keep_logits: write each chunked step's last-token logits into
+        ``logits`` (B, chunk_size, vocab), in the model's logits dtype.
 
     The engine runs on the device of ``params``.  ``program`` is the
     captured step (``capture_s``, ``instantiate_s``, ``pool_bytes``), None
@@ -178,7 +191,7 @@ class ServeEngine:
 
     def __init__(self, cfg, params, batch_slots: int = 4, max_len: int = 512,
                  chunk_size: int = 8, decode_mode: str = "chunked",
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, keep_logits: bool = False):
         assert cfg.supports_decode, f"{cfg.name} is encoder-only"
         if decode_mode not in ("chunked", "host"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
@@ -205,14 +218,22 @@ class ServeEngine:
         self.cur = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
         # the step's fixed buffers in one block, so that a chunk sets them
         # with one copy and reads them back with one:
-        # [pos (B) | rem (B) | eos (B) | out (B*C) | t (1) | live steps (1)]
-        n = 3 * B + B * C + 2
+        # [pos (B) | rem (B) | eos (B) | out (B*C) | t (1) | live steps (1)
+        #  | held pairs (1)]
+        n = 3 * B + B * C + 3
         self._host = torch.zeros(n, dtype=torch.int64, pin_memory=on_card)
         self._dev = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._d_pos, self._d_rem, self._d_eos = (
             self._dev[i * B:(i + 1) * B] for i in range(3))
         self._d_out = self._dev[3 * B:3 * B + B * C].view(B, C)
-        self._d_t, self._d_live = self._dev[n - 2:n - 1], self._dev[n - 1:]
+        self._d_t, self._d_live, self._d_held = (
+            self._dev[i:i + 1] for i in range(n - 3, n))
+        self.held_pairs = 0
+        self.logits = None
+        if keep_logits:
+            self.logits = torch.zeros(
+                (B, C, cfg.vocab_size), dtype=params["embed"]["table"].dtype,
+                device=self.device)
 
         step = self._chunk_step if decode_mode == "chunked" else \
             self._host_step
@@ -245,7 +266,10 @@ class ServeEngine:
         overwrites at the next admission."""
         logits, _ = M.forward(self.params, self.cfg, self.cur,
                               caches=self.caches, pos=self._d_pos,
-                              last_token_only=True)
+                              last_token_only=True, held_pairs=self._d_held)
+        if self.logits is not None:
+            self.logits.index_copy_(1, self._d_t,
+                                    logits.to(self.logits.dtype))
         nxt = _greedy(logits)
         rem, eos = self._d_rem, self._d_eos
         live = rem > 0
@@ -281,6 +305,11 @@ class ServeEngine:
         return rid
 
     @property
+    def slot_requests(self) -> List[Optional[Request]]:
+        """The request each slot serves (None: a free slot)."""
+        return list(self._slot_req)
+
+    @property
     def has_work(self) -> bool:
         return bool(self._queue) or any(
             r is not None for r in self._slot_req)
@@ -305,29 +334,30 @@ class ServeEngine:
             if not self._queue or self._slot_req[slot] is not None:
                 continue
             r = self._queue.pop(0)
-            tokens = torch.from_numpy(r.prompt.astype(np.int64))[None, :]
-            tok, pf_caches = _prefill_one(self.params,
-                                          tokens.to(self.device),
-                                          cfg=self.cfg, max_len=self.max_len)
-            first = int(tok)  # host sync: first token of this request
-            self.stats["prefills"] += 1
-            self.stats["host_syncs"] += 1
-            self.stats["tokens_generated"] += 1
-            r.t_first = time.perf_counter()
-            r.out.append(first)
-            if len(r.out) >= r.max_new_tokens or (
-                    r.eos_id is not None and first == r.eos_id):
-                r.done = True
-                r.t_done = r.t_first
-                results[r.rid] = r.out
-                finished.append(r)
-                continue
-            write_prompt(self.caches, slot, pf_caches)
-            self.cur[slot, 0] = first
-            self._pos[slot] = len(r.prompt)
-            self._rem[slot] = r.max_new_tokens - 1
-            self._eos[slot] = -1 if r.eos_id is None else r.eos_id
-            self._slot_req[slot] = r
+            with trace.span("serve.prefill"):
+                tokens = torch.from_numpy(r.prompt.astype(np.int64))[None, :]
+                tok, pf_caches = _prefill_one(
+                    self.params, tokens.to(self.device), cfg=self.cfg,
+                    max_len=self.max_len)
+                first = int(tok)  # host sync: first token of this request
+                self.stats["prefills"] += 1
+                self.stats["host_syncs"] += 1
+                self.stats["tokens_generated"] += 1
+                r.t_first = time.perf_counter()
+                r.out.append(first)
+                if len(r.out) >= r.max_new_tokens or (
+                        r.eos_id is not None and first == r.eos_id):
+                    r.done = True
+                    r.t_done = r.t_first
+                    results[r.rid] = r.out
+                    finished.append(r)
+                    continue
+                write_prompt(self.caches, slot, pf_caches)
+                self.cur[slot, 0] = first
+                self._pos[slot] = len(r.prompt)
+                self._rem[slot] = r.max_new_tokens - 1
+                self._eos[slot] = -1 if r.eos_id is None else r.eos_id
+                self._slot_req[slot] = r
         return finished
 
     def _harvest(self, slot_tokens, results) -> List[Request]:
@@ -346,17 +376,26 @@ class ServeEngine:
 
     def _step_chunked(self, results) -> List[Request]:
         B, C = self.slots, self.chunk_size
-        h = self._host.numpy()
-        h[:B], h[B:2 * B], h[2 * B:3 * B] = self._pos, self._rem, self._eos
-        h[3 * B:3 * B + B * C] = -1
-        h[-2:] = 0
-        self._dev.copy_(self._host, non_blocking=True)
-        for _ in range(min(C, int(self._rem.max()))):
-            self._decode()
-        # ONE host sync for the whole chunk: tokens, budgets and step count
-        back = self._dev.to("cpu", copy=True).numpy()
+        with trace.span("serve.chunk"):
+            with trace.span("serve.upload"):
+                h = self._host.numpy()
+                h[:B], h[B:2 * B], h[2 * B:3 * B] = \
+                    self._pos, self._rem, self._eos
+                h[3 * B:3 * B + B * C] = -1
+                h[-3:] = 0
+                self._dev.copy_(self._host, non_blocking=True)
+            with trace.span("serve.replay"):
+                for _ in range(min(C, int(self._rem.max()))):
+                    self._decode()
+            # ONE host sync for the whole chunk: tokens, budgets, step
+            # count and held pairs
+            with trace.span("serve.download"):
+                back = self._dev.to("cpu", copy=True).numpy()
+            self.held_pairs = int(back[-1])
+            if getattr(self.cfg, "experts_held", None) is not None:
+                trace.count("moe.held_pairs", self.held_pairs)
         out, rem = back[3 * B:3 * B + B * C].reshape(B, C), back[B:2 * B]
-        steps = int(back[-1])
+        steps = int(back[-2])
         self.stats["chunk_launches"] += 1
         self.stats["host_syncs"] += 1
         self.stats["decode_steps"] += steps

@@ -31,7 +31,12 @@ What the port records:
 * ``fused.check``, ``fused.alloc``, ``fused.launch`` (the library call) in
   ``backends/megakernel.py::taskbench_fused``, and K3's counters
   ``K3_COUNTERS`` there, one row per CTA (``kernels/csrc/fused.cu``);
-* ``graph.replay`` in ``backends/dataflow.py::CapturedProgram``.
+* ``graph.replay`` in ``backends/dataflow.py::CapturedProgram``;
+* ``serve.chunk`` over ``serve.upload``, ``serve.replay`` and
+  ``serve.download``, and ``serve.prefill`` an admission, in
+  ``serve/engine.py``, with the counter ``moe.held_pairs`` (a chunk's
+  (token, held expert) pairs, ``models/moe.py``) under ``serve.chunk``:
+  a value the host already holds, registered with ``count``.
 """
 from __future__ import annotations
 
@@ -161,6 +166,17 @@ def device_counters(names: Sequence[str], rows: int,
     run = rec._runs[sid] if sid >= 0 else -1
     rec._device.append((tuple(names), buf, sid, run))
     return buf
+
+
+def count(name: str, value: int) -> None:
+    """While recording: the counter ``name`` with one value the host
+    already holds, registered under the open span.  Off: nothing."""
+    rec = _ACTIVE
+    if rec is None:
+        return
+    sid = rec._open[-1] if rec._open else -1
+    run = rec._runs[sid] if sid >= 0 else -1
+    rec._device.append(((name,), torch.tensor([[int(value)]]), sid, run))
 
 
 @contextlib.contextmanager

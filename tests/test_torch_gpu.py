@@ -1504,3 +1504,117 @@ def test_pp_loss_gradients_on_card_through_k5_match_the_plain_path(cuda):
         assert float((got[key] - w).abs().max()) <= 1e-3 * top, key
         if key.startswith("['blocks_scanned']"):
             assert all(float(got[key][s].abs().sum()) > 0 for s in range(2))
+
+
+# ------------------------------------------- Granite 4.0-H Small, small cut
+def granite_model(cuda):
+    """Granite at ``reduced()``'s cut (one period of the pattern, 2 of 8
+    experts held, top-3) in bfloat16, the benchmark cell's precision."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_model
+
+    cfg = dataclasses.replace(reduced(get_config("granite-4.0-h-small")),
+                              dtype="bfloat16")
+    return cfg, init_model(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+
+
+def granite_chunks(cfg, params, graphs, chunks=3):
+    """Three requests decoded chunk by chunk; every chunk's tokens, logits
+    and held pairs."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=3, max_len=96, chunk_size=4,
+                      graphs=graphs, keep_logits=True)
+    for n in (5, 17, 40):
+        eng.submit(np.arange(n) % 200 + 1, max_new_tokens=40)
+    out = []
+    for _ in range(chunks):
+        eng.step()
+        out.append(([list(r.out) for r in eng.slot_requests],
+                    eng.logits.clone(), eng.held_pairs))
+    return out, eng
+
+
+@pytest.mark.gpu
+def test_granite_captured_engine_gives_the_eager_engines_tokens_and_logits(
+        cuda):
+    cfg, params = granite_model(cuda)
+    eager, _ = granite_chunks(cfg, params, False)
+    got, eng = granite_chunks(cfg, params, True)
+    assert eng.program is not None
+    for (t0, l0, h0), (t1, l1, h1) in zip(eager, got):
+        assert t1 == t0 and h1 == h0 > 0
+        assert torch.equal(l1, l0)
+
+
+@pytest.mark.gpu
+def test_granite_held_expert_layer_is_capture_safe(cuda):
+    """The held-expert layer captured alone, with a host sync made an
+    error, replays on new rows in its fixed buffers as it runs eagerly,
+    and counts its pairs in the replay."""
+    from repro_torch.models import moe
+
+    cfg, params = granite_model(cuda)
+    p = params["blocks"][0]["moe"]
+    x = torch.zeros(6, 1, cfg.d_model, dtype=torch.bfloat16, device=cuda)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream):
+            moe.apply_moe(p, x, cfg)
+            with torch.cuda.graph(graph, stream=stream):
+                y = moe.apply_moe(p, x, cfg, held_pairs=counter)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    g = torch.Generator(cuda).manual_seed(2)
+    for _ in range(2):
+        new = torch.randn(x.shape, generator=g, device=cuda).to(x.dtype)
+        x.copy_(new)
+        counter.zero_()
+        graph.replay()
+        want = moe.apply_moe(p, new, cfg)[0]
+        assert y.shape == want.shape and torch.equal(y, want)
+        _, idx, _ = moe._router(new.reshape(-1, cfg.d_model), p["router"],
+                                cfg.num_experts, cfg.num_experts_per_tok)
+        lo, hi = cfg.experts_held
+        assert int(counter) == int(((idx >= lo) & (idx < hi)).sum())
+
+
+@pytest.mark.gpu
+def test_granite_held_pairs_equal_the_pairs_routed_on_the_host(cuda,
+                                                               monkeypatch):
+    """The engine's ``held_pairs`` of each chunk (counted on the device in
+    the captured step) equal the pairs an eager engine's router sends to
+    the held experts, counted on the host from its indices."""
+    from repro_torch.models import moe
+
+    cfg, params = granite_model(cuda)
+    got, _ = granite_chunks(cfg, params, True)
+    routed, router = [], moe._router
+
+    def spy(x2d, wr, E, k):
+        out = router(x2d, wr, E, k)
+        routed.append(out[1].cpu().numpy())
+        return out
+
+    monkeypatch.setattr(moe, "_router", spy)
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=3, max_len=96, chunk_size=4,
+                      graphs=False)
+    for n in (5, 17, 40):
+        eng.submit(np.arange(n) % 200 + 1, max_new_tokens=40)
+    lo, hi = cfg.experts_held
+    for _, _, held in got:
+        routed.clear()
+        eng.step()
+        decode = [r for r in routed if r.shape[0] == 3]  # not the prefills
+        assert len(decode) == 4 * cfg.num_layers
+        assert held == sum(int(((r >= lo) & (r < hi)).sum())
+                           for r in decode)

@@ -107,7 +107,7 @@ def test_config_copy_equals_reference():
             dataclasses.asdict(rcfg.reduced(ref))
         assert port.pattern_for_depth() == ref.pattern_for_depth()
         assert port.params_dense == ref.params_dense
-    assert tcfg.config_names() == sorted(names)
+    assert tcfg.config_names() == sorted(names + tcfg.PORT_ARCHS)
     assert tcfg.ALL_ARCHS == names == rcfg.ALL_ARCHS
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("qwen2-vl-7b")
