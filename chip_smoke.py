@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels K1-K6 from ``src/repro_torch/kernels/
+Builds the hand-written CUDA kernels K1-K7 from ``src/repro_torch/kernels/
 csrc`` (nvcc, sm_90a, one process per source), then, in phases that each
 raise on failure:
 
@@ -35,7 +35,11 @@ raise on failure:
    at shapes the tensor-core kernel's tiles can get wrong (ragged GQA at
    D=128, a chunked-prefill offset off the tile grid, non-causal MQA with
    Skv no multiple of 64) and at the full-width RecurrentGemma-2B prefill
-   (Hq 10, Hkv 1, D 256, window 2048, S 1000 and 3000);
+   (Hq 10, Hkv 1, D 256, window 2048, S 1000 and 3000); K7 (the SSD
+   decode step) at the Mamba-2 2.7B decode step (H 80, P 64, N 128, bf16
+   x, B and C, a float32 state) at 4 and 128 slots, SSD_DECODE_STEPS steps
+   carried: the state bit for bit, y within one bf16 ulp, the state
+   updated in place and one launch a call;
 4. the structural pin, over ``PIN_RUNS`` runs: the launch counter reads
    exactly one K3 launch a ``cuda-fused`` run, for 1 graph and for 3
    stacked graphs, and one K4 launch a graph of a
@@ -86,7 +90,10 @@ raise on failure:
    turns), one profiled tick of each captured engine (exactly ``steps``
    ``cudaGraphLaunch`` calls, one in host mode, and no kernel launch from
    the host) and the profiles of one eager decode step, one replayed step
-   and the 1000-token prefill are printed;
+   and the 1000-token prefill are printed, the launch counts zeroed just
+   before each: K7 once a layer in the eager step, none in the replay
+   (the captured step holds K7 once a layer, counted at capture) and none
+   in the prefill;
 8. the same for ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU
    and 8 local-attention, bf16, random weights from seed 0) with
    ``max_len=4096``, so every local-attention layer has a ring cache and
@@ -224,14 +231,15 @@ Every kernel's bound comes from its wrapper's declared cost
 (``kernels/_cost.py``), at the rate ``card_peaks`` computes.
 The "kernel times" phase runs the plain K3 and K4 (1.13-1.44 s a call) one
 call a window, a cut for the time phase 13 takes.  It also times K6 at the five shapes Mamba-2 serving
-gives it (SSD_SERVE), each pass apart; K1 as a node of the replayed
+gives it (SSD_SERVE), each pass apart; K7 at SSD_DECODE; K1 as a node of the replayed
 ``cuda-graph`` stencil run beside K1 alone; an empty kernel with K1's grid
 (the launch floor K1's bound leaves out) alone and as a graph node; and the
 replayed run's device time and wall a timestep beside ``torch-scan``'s wall.
 The line before the last lists the kernels with their launches on the main
 path (and the path they were counted on; ``planner_launches``: through
 ``torch-auto`` in phase 11, a rank's included; ``moe_launches``: on
-phase 13's MoE serving; ``train_launches``: a train step of phase 14, K5's
+phase 13's MoE serving; K7's ``launches``: its nodes in phase 7's
+captured decode step; ``train_launches``: a train step of phase 14, K5's
 on HuBERT, K6's on the Mamba-2 cut; ``dp_launches``: a rank's step of
 phase 15's data-parallel training; ``pp_launches``: its pipelined
 ``yi-6b`` forward; K5's ``shapes``: its row at HuBERT's
@@ -301,6 +309,8 @@ from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.dryrun import lower_cell  # noqa: E402
 from repro_torch.kernels.ssd import (ssd_chunked,  # noqa: E402
                                      ssd_chunked_plain, uses_tensor_cores)
+from repro_torch.kernels.ssd_decode import (ssd_decode,  # noqa: E402
+                                            ssd_decode_plain, uses_wide_path)
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.cache import init_caches  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -374,6 +384,10 @@ SSD_TOL = 1e-4  # float32: the same products summed in another order
 # (tests/test_torch_ssm.py::test_bf16_rounding_cascade_dwarfs_f32_drift)
 LOGITS_F32_RTOL, LOGITS_BF16_RTOL = 1e-4, 0.25
 SERVE_SLOTS, SERVE_CHUNK = 4, 8
+# K7 at the mamba2-2.7b decode step (B slots, H 80, P 64, N 128, G 1): the
+# serving phase's slots and a full batch of 128 (its kernels-line row)
+SSD_DECODE = tuple((B, 80, 64, 128, 1) for B in (SERVE_SLOTS, 128))
+SSD_DECODE_STEPS = 8  # steps carried from a zero state in phase 3
 # phase 12: the serving family and the dense configurations, in at most
 # DENSE_BUDGET_S; qwen2-72b (145 GB in bf16) cut to QWEN72_LAYERS layers
 # (61 GB), yi-6b and minitron-8b whole
@@ -729,6 +743,59 @@ def ssd_agree(name: str, got, want) -> float:
             raise AssertionError(f"K6 {name}: {what} differs from its plain "
                                  f"version beyond the tolerance")
         worst = max(worst, err)
+    return worst
+
+
+def decode_inputs(B, H, P, N, G, S, dev, seed=0):
+    """S decode steps of K7's inputs as the model gives them: x, B and C in
+    bf16, dt, A and D in float32."""
+    x, dt, A, Bm, Cm = ssd_inputs(B, S, H, P, G, N, dev, torch.bfloat16, seed)
+    D = torch.randn(H, generator=torch.Generator().manual_seed(seed + 1))
+    return x, dt, A, Bm, Cm, D.to(dev)
+
+
+def k7_agree(B, H, P, N, G, dev, steps: int) -> float:
+    """K7 against its plain version over ``steps`` decode steps carried from
+    a zero state: the state bit for bit after each (the update is
+    elementwise and K7 rounds it as ``ssd_ref`` does, no FMA), y within one
+    bf16 ulp plus SSD_TOL (a sum over N in another order, rounded to
+    bf16), the state updated in place and one launch a call.  Returns y's
+    max abs error."""
+    x, dt, A, Bm, Cm, D = decode_inputs(B, H, P, N, G, steps, dev)
+    h = torch.zeros(B, H, P, N, device=dev)
+    h_p = torch.zeros_like(h)
+    name = f"K7 B={B} H={H} P={P} N={N} G={G}"
+    worst = 0.0
+    for s in range(steps):
+        args = (x[:, s:s + 1], dt[:, s:s + 1], A, Bm[:, s:s + 1],
+                Cm[:, s:s + 1])
+        n, ptr = ssd_decode.launches, h.data_ptr()
+        y, h_out = ssd_decode(*args, h, D)
+        if ssd_decode.launches != n + 1 or h_out is not h or \
+                h.data_ptr() != ptr:
+            raise AssertionError(f"{name}: {ssd_decode.launches - n} "
+                                 f"launches, or the state not updated in "
+                                 f"place")
+        y_p, _ = ssd_decode_plain(*args, h_p, D)
+        if not torch.equal(h, h_p):
+            raise AssertionError(f"{name}: the state differs from the plain "
+                                 f"version's at step {s}")
+        a, b = y.float(), y_p.float()
+        diff = (a - b).abs()
+        if y.dtype != torch.bfloat16 or not bool(a.isfinite().all()) or \
+                not bool((diff <= bf16_ulp(b) + SSD_TOL * (1 + b.abs()))
+                         .all()):
+            raise AssertionError(f"{name}: y differs from the plain "
+                                 f"version's by more than one bf16 ulp at "
+                                 f"step {s}")
+        worst = max(worst, diff.max().item())
+    if not bool(h.abs().max() > 0):
+        raise AssertionError(f"{name}: the state stayed zero")
+    print(f"   {name} bf16 x/B/C, {steps} steps carried "
+          f"({'16-byte' if uses_wide_path(h) else 'scalar'} path): state "
+          f"bitwise every step, y max abs err {worst:.3e} (max |plain| "
+          f"{y_p.float().abs().max().item():.3f}), one launch a call, the "
+          f"state updated in place")
     return worst
 
 
@@ -1121,10 +1188,13 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                 flash_attention_plain(q, k, v, **kw)))
             if q_offset < 0 and o[:, :-q_offset].any():
                 raise AssertionError("K5: fully masked rows are not 0")
+    errs["K7"] = max(k7_agree(*case, dev, SSD_DECODE_STEPS)
+                     for case in SSD_DECODE)
     print(f"   launches so far: K1 {taskbench_compute.launches}, "
           f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}, "
           f"K4 {taskbench_onesided.launches}, K5 "
-          f"{flash_attention.launches}, K6 {ssd_chunked.launches}")
+          f"{flash_attention.launches}, K6 {ssd_chunked.launches}, K7 "
+          f"{ssd_decode.launches}")
     done(t0)
 
     # -- 4. the structural pin -----------------------------------------
@@ -1200,11 +1270,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     scan = get_backend("torch-scan")
     counters = {"K1": taskbench_compute, "K2": taskbench_memory,
                 "K3": taskbench_fused, "K4": taskbench_onesided,
-                "K5": flash_attention, "K6": ssd_chunked}
+                "K5": flash_attention, "K6": ssd_chunked, "K7": ssd_decode}
     # the path whose launches the kernels line reports for each kernel
     launches_on = {"K1": "torch-scan", "K2": "torch-scan", "K3": "cuda-fused",
                    "K4": ONESIDED, "K5": f"{GEMMA.model} serving",
-                   "K6": f"{MAMBA.model} serving"}
+                   "K6": f"{MAMBA.model} serving",
+                   "K7": f"{MAMBA.model} captured decode step"}
     cases = (("stencil", "stencil", [stencil]),
              ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
              ("memory 1 MiB", "memory", [memory]))
@@ -1304,6 +1375,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                  declared(taskbench_onesided, *otabs, **okw), None))
     rows.append(("K5",) + attention_times(dev, bound, peak_bf16, sms))
     rows.append(("K6",) + ssd_times(dev, bound, peak_bf16))
+    rows.append(("K7",) + ssd_decode_times(dev, bound))
     for name, t, plain, (bs, by), library in rows:
         lib_text = ("" if library is None else
                     f"; library call {library.describe()}")
@@ -1367,8 +1439,8 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   ({card})")
     done(t0)
 
-    launches["K6"] = serve_phase(MAMBA, "7", dev, card, counters)
-    launches["K5"] = serve_phase(GEMMA, "8", dev, card, counters)
+    launches.update(serve_phase(MAMBA, "7", dev, card, counters))
+    launches.update(serve_phase(GEMMA, "8", dev, card, counters))
     study_phase(card)
     rank_launches = csp_phase(
         {"stencil": [stencil], "nearest": replicate(nearest, 4),
@@ -1403,6 +1475,9 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
         "K6": ("ssd_chunked",  # timed in bf16, the main path's type
                "src/repro_torch/kernels/csrc/ssd_sm90.cuh",
                "src/repro/kernels/ssd.py:25"),
+        "K7": ("ssd_decode",  # timed at 128 slots, bf16 x, B and C
+               "src/repro_torch/kernels/csrc/ssd_decode.cu",
+               "none: src/repro/kernels/ops.py:139 is plain jnp"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], "launches": launches[k],
@@ -2117,6 +2192,32 @@ def ssd_times(dev, bound, peak_bf16: float):
     return row
 
 
+def ssd_decode_times(dev, bound):
+    """K7 at the shapes of SSD_DECODE (one step from a carried state, the
+    state updated in place by every call): device time, the plain
+    version's (``ssd_ref``'s four operations and the copy) and the bound
+    from its declared cost (``ssd_decode.cost``: the state read and
+    written, the inputs read and y written once).  Returns the row at 128
+    slots (timing, plain, bound, library): no PyTorch call computes the
+    step."""
+    for case in SSD_DECODE:
+        B, H, P, N, G = case
+        x, dt, A, Bm, Cm, D = decode_inputs(B, H, P, N, G, 1, dev)
+        h = torch.zeros(B, H, P, N, device=dev)
+        h_p = torch.zeros_like(h)
+        t = timed(lambda: ssd_decode(x, dt, A, Bm, Cm, h, D), 50,
+                  kernels_a_call=1)
+        plain = timed(lambda: ssd_decode_plain(x, dt, A, Bm, Cm, h_p, D), 10)
+        c = ssd_decode.cost(x, dt, A, Bm, Cm, h, D)
+        bs, by = bound(c.flops + c.ops, c.bytes)
+        print(f"   K7 at B={B} (H={H}, P={P}, N={N}, G={G}, bf16 x/B/C): "
+              f"{t.describe()}; plain version {plain.describe()}; "
+              f"{c.bytes / 1e6:.3f} MB: bound {bs * 1e3:.6f} ms ({by}), K7 "
+              f"reaches {bs * 1e3 / t.device:.3f} of it; grid {B * H} CTAs")
+        row = (t, plain, (bs, by), None)
+    return row
+
+
 def to_float32(tree):
     if isinstance(tree, dict):
         return {k: to_float32(v) for k, v in tree.items()}
@@ -2153,7 +2254,7 @@ def served(eng, batch):
 def serve_engines(cfg, params, max_len: int) -> dict:
     """The three engines a serving phase runs: chunked and host with the
     decode step captured, chunked eager (the baseline); the captures'
-    times, pools and K5/K6 nodes printed."""
+    times, pools and K5/K6/K7 nodes printed."""
     engines = {}
     for label, mode, graphs in (("chunked captured", "chunked", True),
                                 ("host captured", "host", True),
@@ -2168,7 +2269,7 @@ def serve_engines(cfg, params, max_len: int) -> dict:
                   f"{time.perf_counter() - t:.3f} s, capture "
                   f"{p.capture_s * 1e3:.3f} ms, instantiate "
                   f"{p.instantiate_s * 1e3:.3f} ms, graph pool "
-                  f"{p.pool_bytes / 2**20:.3f} MiB, K5/K6 nodes {p.nodes}")
+                  f"{p.pool_bytes / 2**20:.3f} MiB, K5/K6/K7 nodes {p.nodes}")
     return engines
 
 
@@ -2220,9 +2321,10 @@ def decode_rate(eng, cfg, rng, label: str, pin: str = "") -> float:
 
 
 def serve_phase(case: ServeCase, number: str, dev, card: str,
-                counters: dict) -> int:
-    """Serve ``case.model`` at full width; returns its kernel's launches on
-    the serving path."""
+                counters: dict) -> dict:
+    """Serve ``case.model`` at full width; returns its prefill kernel's
+    launches on the serving path and, for a model with SSD layers, K7's
+    nodes in the captured decode step."""
     K = case.kernel
     t0 = phase(f"{number}. serving {case.model} at full width: ServeEngine("
                f"batch_slots={SERVE_SLOTS}, max_len={case.max_len}, "
@@ -2236,6 +2338,7 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     per_prefill = cfg.pattern_for_depth().count(case.kind)
+    ssd_layers = sum(k in ("ssd", "ssd_moe") for k in cfg.pattern_for_depth())
     print(f"   {case.model}: {cfg.num_layers} layers ({per_prefill} "
           f"{case.kind}), d_model {cfg.d_model}, {n_params} parameters in "
           f"{cfg.dtype}, made from seed 0 in {time.perf_counter() - t1:.3f} s")
@@ -2259,6 +2362,7 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
                              f"serving path, expected {want} (one a "
                              f"{case.kind} layer for each prefill of more "
                              f"than one token)")
+    k_launches = counts[K]
     print(f"   {K} launches {counts[K]} = {per_prefill} {case.kind} layers x "
           f"{longer} prefills of more than one token ({stats['prefills']} "
           f"prefills; a one-token prompt is a decode step, as in the "
@@ -2309,36 +2413,60 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     # one decode step at 4 slots eager, the same step replayed, and the
     # 1000-token prefill under the profiler: launches, kernel time (the
     # kernel's share), wall, idle share
+    # K7 once a layer a decode step: counted in the eager step, none in the
+    # replay, whose graph holds the nodes counted at capture
     k = lengths.index(1000)
     prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
     eager = engines["chunked eager"]
+    k7_nodes = chunked.program.nodes["ssd_decode"]
     chunked._dev.zero_()  # a chunk's first step (index 0), every slot dead
-    for what, fn in (
+    for what, fn, k7_want in (
             (f"one decode step at {SERVE_SLOTS} slots, eager",
              lambda: lm.forward(params, cfg, eager.cur, caches=eager.caches,
-                                last_token_only=True)),
+                                last_token_only=True), ssd_layers),
             (f"one decode step at {SERVE_SLOTS} slots, replayed",
-             chunked.program),
+             chunked.program, 0),
             ("the 1000-token prefill",
              lambda: lm.forward(params, cfg, prompt, caches=init_caches(
-                 cfg, 1, case.max_len, device=dev), last_token_only=True))):
+                 cfg, 1, case.max_len, device=dev), last_token_only=True),
+             0)):
+        for c in counters.values():
+            c.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
+        counts = {k: c.launches for k, c in counters.items()}
         kern = device_kernels(prof)
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         mine = [e for e in kern if case.name in e.name]
         mine_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        k7 = [e for e in kern if "ssd_decode_kernel" in e.name]
+        k7_ms = sum(e.time_range.elapsed_us() for e in k7) / 1e3
         print(f"   {what}, profiled: {len(kern)} CUDA kernels "
               f"({len(kern) / cfg.num_layers:.1f} a layer), {busy:.3f} ms of "
-              f"kernel time ({len(mine)} {K} recorded, {mine_ms:.3f} ms) in "
-              f"{wall:.3f} ms of wall (idle share {1 - busy / wall:.3f})")
+              f"kernel time ({len(mine)} {K} recorded, {mine_ms:.3f} ms; "
+              f"{len(k7)} K7 recorded, {k7_ms:.3f} ms) in {wall:.3f} ms of "
+              f"wall (idle share {1 - busy / wall:.3f}); launches {counts}")
+        if counts["K7"] != k7_want:
+            raise AssertionError(f"{what}: K7 launched {counts['K7']} "
+                                 f"times, expected {k7_want} (once a layer "
+                                 f"of the {ssd_layers} SSD layers in an "
+                                 f"eager decode step, none in a replay or "
+                                 f"a prefill)")
         if "replayed" in what:
             for line in top_kernels(kern):
                 print("     " + line)
+    if k7_nodes != ssd_layers:
+        raise AssertionError(f"the captured decode step holds {k7_nodes} K7 "
+                             f"nodes, expected one a layer of the "
+                             f"{ssd_layers} SSD layers")
+    print(f"   K7: {k7_nodes} nodes in the captured decode step and "
+          f"{ssd_layers} launches in the eager one (one a SSD layer)")
+    for c in counters.values():
+        c.launches = 0
     del engines, chunked, eager
 
     # the prefill logits of the checked prompt, the kernel against its plain
@@ -2385,7 +2513,7 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     del params
     release()
     done(t0)
-    return counts[K]
+    return {K: k_launches} | ({"K7": k7_nodes} if ssd_layers else {})
 
 
 def top_kernels(kern: list, n: int = 6) -> list:

@@ -7,6 +7,8 @@
   ``csrc/flash_attention_sm90.cuh`` on wgmma and TMA; float32:
   ``csrc/flash_attention.cu``; a module, its wrapper of the same name)
 - ssd: K6, the Mamba-2 SSD chunked forward (``csrc/ssd.cu``)
+- ssd_decode: K7, one Mamba-2 SSD decode step, the state updated in place
+  (``csrc/ssd_decode.cu``)
 - ops / ref: the LM dispatch (``attention``, ``ssd``, ``ssd_decode_step``)
   and its oracles
 - _build: the nvcc build of ``csrc/`` and the ctypes loader

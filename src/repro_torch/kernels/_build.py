@@ -54,6 +54,8 @@ SIGNATURES = {
     "ssd_chunked_bf16_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunked_bf16_smem_bytes": ([_I, _I], _I),
+    "ssd_decode_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _L, _L, _L, _L, _I, _I, _I, _P], _I),
     "flash_attention_f32_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _F, _I, _I, _I, _I, _I, _P], _I),
     "flash_attention_bf16_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,12 +1,12 @@
 """Declared costs of the hand-written kernels, for the dry-run counter.
 
-Each kernel wrapper K1-K6 (and its plain version) carries ``cost``: a
+Each kernel wrapper K1-K7 (and its plain version) carries ``cost``: a
 function of the wrapper's own arguments (tensors, or anything with a
 ``shape`` and ``dtype``: meta tensors do) returning a ``Cost``:
 
 ``flops``
     matmul FLOPs, the roofline's convention (``launch.roofline``): K5's
-    QK^T and PV products, K6's products, 0 for K1-K4;
+    QK^T and PV products, K6's products, K7's y = h' . C, 0 for K1-K4;
 ``bytes``
     each input read once and each output written once;
 ``ops``

@@ -20,6 +20,7 @@ from . import flash_attention as _fa
 from . import ref as _ref
 from . import sharded as _sharded
 from . import ssd as _ssd
+from . import ssd_decode as _ssd_decode
 
 IMPLS = ("auto", "plain", "ref")
 
@@ -105,9 +106,11 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     D: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token state update (the serving path), O(state): one step of
-    ``ssd_ref`` from the carried state h (B, H, P, N)."""
+    ``ssd_ref`` from the carried state h (B, H, P, N), which is updated in
+    place and returned with y (``ssd_decode.ssd_decode``: K7 on a CUDA
+    tensor, its plain version on a CPU one)."""
     if _sharded.is_dtensor(x, dt, A, Bm, Cm, h, D):
         return _sharded.ssd(
             lambda x_, dt_, A_, B_, C_, D_, h_: ssd_decode_step(
                 x_, dt_, A_, B_, C_, h_, D_), x, dt, A, Bm, Cm, D, h)
-    return _ref.ssd_ref(x, dt, A, Bm, Cm, D, h0=h, return_state=True)
+    return _ssd_decode.ssd_decode(x, dt, A, Bm, Cm, h, D)

@@ -30,7 +30,7 @@ allocates nothing), with the reference's conventions:
     reduce-scatter = operand bytes.  Seen at dispatch: the functional
     collectives DTensor issues and the c10d ops of ``dist.ranks.RankComm``
     (every exchange of ``dist/collectives.py``).
-  * The hand-written kernels K1-K6 charge their declared cost
+  * The hand-written kernels K1-K7 charge their declared cost
     (``kernels/_cost.py``) wherever the kernel or its plain version runs,
     and their plain version's ops are not counted; their elementwise
     operations go to ``ops`` (at PEAK_FP32).

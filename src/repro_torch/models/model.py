@@ -275,14 +275,26 @@ def _write(cache: LayerCache, new: Dict, scan: bool = True) -> None:
     and the others keep what they held (``dynamic_update_index_in_dim``);
     an unrolled stack keeps the short tail as the layer's cache until
     ``write_prompt`` broadcasts it over the rows (``.at[slot].set``), so it
-    is broadcast here.
+    is broadcast here.  A field whose new tensor is the cache's own
+    memory (the SSM state, which ``ops.ssd_decode_step`` updates in place)
+    is not copied onto itself.
     """
     for f, src in new.items():
         dst = getattr(cache, f)
         if scan:
-            dst[:, :src.shape[1]].copy_(src)
-        else:
+            dst = dst[:, :src.shape[1]]
+        if not _same_memory(src, dst):
             dst.copy_(src)
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two plain tensors view the same memory alike: the same
+    address, type, shape and strides (never for meta, fake or
+    distributed tensors, which hold no address of their own)."""
+    return (type(a) is torch.Tensor and type(b) is torch.Tensor
+            and not a.is_meta and a.data_ptr() == b.data_ptr()
+            and a.dtype == b.dtype and a.shape == b.shape
+            and a.stride() == b.stride())
 
 
 def forward(params: Dict, cfg, tokens: Optional[torch.Tensor] = None,

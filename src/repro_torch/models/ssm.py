@@ -5,13 +5,15 @@
           bias a channel where ``cfg.ssm_conv_bias`` (Granite 4.0-H)
        -> SiLU, softplus dt, A = -exp(A_log)
        -> SSD: K6 (``ops.ssd``) over a prompt, one scan step
-          (``ops.ssd_decode_step``) for a decode token
+          (``ops.ssd_decode_step``: K7 on the card, the cache's state
+          updated in place) for a decode token
        -> gated RMSNorm(y * silu(z)) -> out-projection
 
 The depthwise conv is a sum of shifted products in float32 (no cuDNN
 convolution, whose float32 path would default to TF32 on the card).  A
 block returns its output and the cache tensors it computed; the model
-writes those into its cache in place.
+writes those into its cache in place (all but the decode step's state,
+which is the cache's own).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 on the card, against their plain versions, and
+"""The CUDA kernels K1-K7 on the card, against their plain versions, and
 the backends that launch them.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without
@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd import (_with_skip, ssd_chunked,  # noqa: E402
                                      ssd_chunked_plain, uses_tensor_cores)
+from repro_torch.kernels.ssd_decode import (ssd_decode,  # noqa: E402
+                                            ssd_decode_plain, uses_wide_path)
 
 COMPUTE_CASES = [(8, 12), (16, 40), (32, 7)]      # tests/test_kernels.py
 MEMORY_CASES = [(1024, 128, 7), (2048, 256, 0), (512, 512, 9)]
@@ -796,6 +798,107 @@ def test_reduced_mamba_serves_on_card_through_k6(cuda):
     assert [len(o) for o in outs["chunked"]] == [m for _, m in reqs]
 
 
+# ------------------------------------------------ K7, the SSD decode step
+# B, H, P, N, G: Granite 4.0-H Small's Mamba-2 layer at 8 slots, Mamba-2
+# 2.7B's at 8 slots (both the 16-byte path), then the scalar path (N 6)
+# with groups
+K7_CASES = [(8, 128, 64, 128, 1), (8, 80, 64, 128, 1), (4, 6, 10, 6, 3)]
+
+
+def k7_inputs(B, H, P, N, G, S, device, dtype=torch.bfloat16, seed=0):
+    """S steps of decode inputs as the model makes them (x, B and C in
+    ``dtype``, dt after softplus, A < 0, D) in float32 where stated."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g) - 2)
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5)
+    Bm = torch.randn(B, S, G, N, generator=g)
+    Cm = torch.randn(B, S, G, N, generator=g)
+    D = torch.randn(H, generator=g)
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            Bm.to(device, dtype), Cm.to(device, dtype), D.to(device))
+
+
+def k7_steps(case, cuda, steps, dtype, with_d, h=None):
+    """``steps`` decode steps carried by K7 and by the plain version from
+    the same zero state, each step's slice of the inputs (a slot stride
+    of ``steps`` rows): each step's state must be equal bit for bit, and
+    y within one bf16 ulp plus ``SSD_TOL`` (bf16) or ``SSD_TOL`` (float32):
+    y is a sum over N taken in another order (a warp's shuffles against
+    the plain version's gemv), rounded to x's type."""
+    B, H, P, N, G = case
+    x, dt, A, Bm, Cm, D = k7_inputs(B, H, P, N, G, steps, cuda, dtype)
+    D = D if with_d else None
+    h = torch.zeros(B, H, P, N, device=cuda) if h is None else h
+    h_p = torch.zeros(B, H, P, N, device=cuda)
+    for s in range(steps):
+        sl = slice(s, s + 1)
+        args = (x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl])
+        n, ptr = ssd_decode.launches, h.data_ptr()
+        y, h_out = ssd_decode(*args, h, D)
+        assert ssd_decode.launches == n + 1
+        assert h_out is h and h.data_ptr() == ptr
+        y_p, _ = ssd_decode_plain(*args, h_p, D)
+        assert torch.equal(h, h_p), s
+        assert y.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert within_one_ulp(y, y_p), s
+        else:
+            torch.testing.assert_close(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+    assert bool(h.abs().max() > 0)
+    return h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_k7_carries_the_plain_state_bit_for_bit(cuda, case, dtype):
+    """64 steps carried: K7's state equals ``ssd_ref``'s bit for bit (the
+    update is elementwise and K7 rounds each product and sum as it does,
+    with no FMA), the state updated in place, one launch a call; the
+    16-byte path at Granite's and Mamba-2's widths, the scalar path at
+    N 6 with 3 groups."""
+    h = torch.zeros(case[:2] + case[2:4], device=cuda)
+    assert uses_wide_path(h) == (case[3] % 4 == 0)
+    k7_steps(case, cuda, 64, dtype, with_d=True, h=h)
+
+
+@pytest.mark.gpu
+def test_k7_without_d_and_on_a_misaligned_state(cuda):
+    """D None; and a state that is contiguous but not 16-byte aligned
+    takes the scalar path, with the same bits."""
+    k7_steps((4, 16, 64, 128, 2), cuda, 8, torch.bfloat16, with_d=False)
+    B, H, P, N = 4, 16, 64, 128
+    buf = torch.zeros(B * H * P * N + 1, device=cuda)
+    h = buf[1:].view(B, H, P, N)
+    assert h.is_contiguous() and not uses_wide_path(h)
+    k7_steps((B, H, P, N, 2), cuda, 8, torch.bfloat16, with_d=True, h=h)
+    assert buf[0] == 0
+
+
+@pytest.mark.gpu
+def test_k7_rejects_what_it_does_not_take_and_launches_nothing(cuda):
+    x, dt, A, Bm, Cm, D = k7_inputs(2, 4, 8, 16, 1, 1, cuda, torch.float32)
+    h = torch.zeros(2, 4, 8, 16, device=cuda)
+    n = ssd_decode.launches
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_decode(x.clone().requires_grad_(), dt, A, Bm, Cm, h, D)
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_decode(x, dt, A, Bm, Cm, h, D.clone().requires_grad_())
+    with pytest.raises(ValueError, match="state must be contiguous"):
+        ssd_decode(x, dt, A, Bm, Cm,
+                   torch.zeros(2, 4, 16, 8, device=cuda).transpose(2, 3), D)
+    with pytest.raises(ValueError, match="dense within a slot"):
+        ssd_decode(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                   Bm, Cm, h, D)
+    with pytest.raises(ValueError, match="all three alike"):
+        ssd_decode(x.bfloat16(), dt, A, Bm, Cm, h, D)
+    assert ssd_decode.launches == n
+    with torch.no_grad():  # no gradient asked: the launch is allowed
+        ssd_decode(x.clone().requires_grad_(), dt, A, Bm, Cm, h, D)
+    assert ssd_decode.launches == n + 1
+
+
 # B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset: tests/test_kernels.py's
 # ATTN_CASES, ragged lengths, fully masked rows (a causal q_offset < 0),
 # the full-width RecurrentGemma-2B prefill at S = 1000, then shapes the
@@ -986,7 +1089,9 @@ def test_captured_engine_gives_the_eager_engines_tokens_and_stats(
     eager, eager_stats, _ = drain(cfg, params, mode, False, max_len)
     got, stats, eng = drain(cfg, params, mode, True, max_len)
     assert eng.program is not None
-    assert eng.program.nodes == {"flash_attention": 0, "ssd_chunked": 0}
+    ssm = sum(k in ("ssd", "ssd_moe") for k in cfg.pattern_for_depth())
+    assert eng.program.nodes == {"flash_attention": 0, "ssd_chunked": 0,
+                                 "ssd_decode": ssm}
     assert got == eager and stats == eager_stats
     assert [len(t) for t in got] == [m for _, m in SERVE_REQS]
     seq = eager[0]
@@ -1547,6 +1652,35 @@ def test_granite_captured_engine_gives_the_eager_engines_tokens_and_logits(
     for (t0, l0, h0), (t1, l1, h1) in zip(eager, got):
         assert t1 == t0 and h1 == h0 > 0
         assert torch.equal(l1, l0)
+
+
+@pytest.mark.gpu
+def test_granite_decode_runs_k7_once_a_mamba_layer_a_step(cuda, monkeypatch):
+    """The decode step launches K7 once a Mamba layer, eagerly and at the
+    capture (one node a layer, replayed with no launch from the host), and
+    never the plain version, which is made to raise."""
+    from repro_torch.kernels import ssd_decode as k7
+    from repro_torch.serve import ServeEngine
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain decode step ran on the card")
+
+    monkeypatch.setattr(k7, "ssd_decode_plain", plain)
+    cfg, params = granite_model(cuda)
+    ssm = sum(k == "ssd_moe" for k in cfg.pattern_for_depth())
+    assert ssm == 9
+    for graphs in (False, True):
+        eng = ServeEngine(cfg, params, batch_slots=3, max_len=96,
+                          chunk_size=4, graphs=graphs)
+        if graphs:
+            assert eng.program.nodes["ssd_decode"] == ssm
+        for n in (5, 17, 40):
+            eng.submit(np.arange(n) % 200 + 1, max_new_tokens=40)
+        eng.step()  # the prefills (K6) and the first chunk
+        before = ssd_decode.launches
+        eng.step()
+        assert eng.stats["decode_steps"] == 8
+        assert ssd_decode.launches - before == (0 if graphs else 4 * ssm)
 
 
 @pytest.mark.gpu

@@ -376,7 +376,7 @@ def test_scratch_elems():
 def test_build_names_repo_sources_and_sm90a():
     srcs = [p.name for p in _build.sources()]
     assert srcs == ["compute.cu", "flash_attention.cu", "fused.cu",
-                    "memory.cu", "onesided.cu", "ssd.cu"]
+                    "memory.cu", "onesided.cu", "ssd.cu", "ssd_decode.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert _build.library_path().parent == _build.BUILD_DIR
     root = Path(__file__).resolve().parents[1]
@@ -407,6 +407,8 @@ def test_bound_functions_take_the_declared_arguments():
     ("onesided.cu", "src/repro/backends/megakernel.py::_onesided_kernel"),
     ("ssd.cu", "src/repro/kernels/ssd.py::_ssd_kernel"),
     ("ssd_sm90.cuh", "src/repro/kernels/ssd.py::_ssd_kernel"),
+    # K7 replaces none: the reference's decode step is plain jnp
+    ("ssd_decode.cu", "src/repro/kernels/ops.py::ssd_decode_step"),
     ("flash_attention.cu",
      "src/repro/kernels/flash_attention.py::_flash_kernel"),
     ("flash_attention_sm90.cuh",

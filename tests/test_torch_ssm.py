@@ -192,30 +192,148 @@ def test_ragged_padding_keeps_final_state_exact():
         close(h_i, h_p, ORACLE_TOL)
 
 
-def test_decode_step_matches_scan():
+DECODE_CASES = [  # B, S, H, P, G, N, with D: the first as the reference's
+    (2, 16, 2, 8, 1, 4, False),
+    (2, 16, 4, 8, 2, 6, True),
+    (3, 8, 6, 4, 3, 16, True),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_step_matches_scan(case):
     """One token at a time from the carried state equals the full scan (as
-    ``test_kernels.py::test_ssd_decode_step_matches_scan``)."""
-    B, S, H, P, G, N = 2, 16, 2, 8, 1, 4
+    ``test_kernels.py::test_ssd_decode_step_matches_scan``), with the
+    state updated in place and returned; groups above 1 and the D skip
+    too."""
+    *shape, with_d = case
+    B, S, H, P, G, N = shape
     x, dt, A, Bm, Cm, D = (torch.from_numpy(a)
-                           for a in ssd_inputs(B, S, H, P, G, N, seed=5))
-    y_full, h_full = tref.ssd_ref(x, dt, A, Bm, Cm, return_state=True)
+                           for a in ssd_inputs(*shape, seed=5))
+    D = D if with_d else None
+    y_full, h_full = tref.ssd_ref(x, dt, A, Bm, Cm, D, return_state=True)
     h = torch.zeros(B, H, P, N)
     ys = []
     for s in range(S):
         sl = slice(s, s + 1)
-        y_t, h = tops.ssd_decode_step(x[:, sl], dt[:, sl], A, Bm[:, sl],
-                                      Cm[:, sl], h)
+        y_t, h_t = tops.ssd_decode_step(x[:, sl], dt[:, sl], A, Bm[:, sl],
+                                        Cm[:, sl], h, D)
+        assert h_t is h
         ys.append(y_t)
     close(torch.cat(ys, dim=1), y_full, 2e-4)
     close(h, h_full, 2e-4)
     j = [jnp.asarray(a.numpy()) for a in (x, dt, A, Bm, Cm)]
     y_r, h_r = rops.ssd_decode_step(*(a[:, :1] for a in j[:2]), j[2],
                                     *(a[:, :1] for a in j[3:]),
-                                    jnp.zeros((B, H, P, N)))
+                                    jnp.zeros((B, H, P, N)),
+                                    None if D is None else jnp.asarray(D))
     y_t, h_t = tops.ssd_decode_step(x[:, :1], dt[:, :1], A, Bm[:, :1],
-                                    Cm[:, :1], torch.zeros(B, H, P, N))
+                                    Cm[:, :1], torch.zeros(B, H, P, N), D)
     close(y_t, y_r, ORACLE_TOL)
     close(h_t, h_r, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_d", [False, True])
+def test_decode_step_updates_the_state_in_place(dtype, with_d):
+    """``ops.ssd_decode_step`` writes the new state into the tensor it was
+    given and returns that tensor, with ``ssd_ref``'s values bit for bit
+    (x, B and C in float32 or bf16, the state float32)."""
+    x, dt, A, Bm, Cm, D = (torch.from_numpy(a)
+                           for a in ssd_inputs(3, 1, 4, 8, 2, 16, seed=8))
+    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    D = D if with_d else None
+    h0 = torch.from_numpy(np.random.RandomState(9).randn(3, 4, 8, 16)
+                          .astype(np.float32))
+    h = h0.clone()
+    ptr = h.data_ptr()
+    y_want, h_want = tref.ssd_ref(x, dt, A, Bm, Cm, D, h0=h0,
+                                  return_state=True)
+    y, h_out = tops.ssd_decode_step(x, dt, A, Bm, Cm, h, D)
+    assert h_out is h and h.data_ptr() == ptr
+    assert y.dtype == dtype and torch.equal(y, y_want)
+    assert torch.equal(h, h_want) and not torch.equal(h, h0)
+
+
+def test_decode_step_rejects_what_the_kernel_does_not_take():
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a)
+                           for a in ssd_inputs(2, 1, 4, 8, 1, 4))
+    h = torch.zeros(2, 4, 8, 4)
+    with pytest.raises(ValueError, match="the state must be"):
+        tops.ssd_decode_step(x, dt, A, Bm, Cm, h[:1])
+    with pytest.raises(ValueError, match="must be float32"):
+        tops.ssd_decode_step(x, dt, A, Bm, Cm, h.double())
+    with pytest.raises(ValueError, match="multiple of groups"):
+        tops.ssd_decode_step(x, dt, A, Bm.expand(-1, -1, 3, -1),
+                             Cm.expand(-1, -1, 3, -1), h)
+    with pytest.raises(ValueError, match="x must be"):
+        tops.ssd_decode_step(x.expand(-1, 2, -1, -1), dt, A, Bm, Cm, h)
+    with pytest.raises(ValueError, match="all three alike"):
+        tops.ssd_decode_step(x.bfloat16(), dt, A, Bm, Cm, h)
+    with pytest.raises(ValueError, match="all three alike"):
+        tops.ssd_decode_step(x, dt, A, Bm, Cm.bfloat16(), h)
+
+
+def copy_as_before(monkeypatch):
+    """The decode step as it was before it updated in place: ``ssd_ref``'s
+    new state, copied into the cache by ``_write``."""
+    monkeypatch.setattr(
+        tops, "ssd_decode_step",
+        lambda x, dt, A, Bm, Cm, h, D=None: tref.ssd_ref(
+            x, dt, A, Bm, Cm, D, h0=h, return_state=True))
+    monkeypatch.setattr(TM, "_same_memory", lambda a, b: False)
+
+
+def mamba_states(caches, cfg):
+    layers = (caches.layer(i) for i in range(cfg.num_layers)) \
+        if isinstance(caches, LayerCache) else caches
+    return [c.state for c in layers if c.state is not None]
+
+
+@pytest.mark.parametrize("name", ["granite-4.0-h-small", MODEL])
+def test_decode_leaves_each_mamba_state_in_place(name, monkeypatch):
+    """A prefill then three decode steps through ``model.forward``: each
+    Mamba layer's cache keeps its state tensor, updated in place and not
+    copied onto itself (Granite's cut: a list of caches; Mamba-2's: a
+    scanned stack), and the logits and states equal those of the step as
+    it was, whose new state ``_write`` copied into the cache."""
+    cfg = tcfg.reduced(tcfg.get_config(name))
+    params = TM.init_model(cfg, 0, "cpu")
+    toks = torch.from_numpy(tokens(2, 6, seed=3, vocab=cfg.vocab_size)).long()
+
+    def run():
+        caches = init_caches(cfg, 2, 32, device="cpu")
+        if TM.scanned(cfg):
+            caches = stack_caches(caches)
+        lg, caches = TM.forward(params, cfg, toks, caches=caches,
+                                last_token_only=True)
+        ptrs = [t.data_ptr() for t in mamba_states(caches, cfg)]
+        out = []
+        for step in range(3):
+            before = [t.clone() for t in mamba_states(caches, cfg)]
+            nxt = lg[:, -1].argmax(-1)[:, None]
+            lg, caches = TM.forward(params, cfg, nxt, caches=caches,
+                                    pos=6 + step, last_token_only=True)
+            states = mamba_states(caches, cfg)
+            assert [t.data_ptr() for t in states] == ptrs
+            assert all(not torch.equal(t, b) for t, b in zip(states, before))
+            out.append((lg.clone(), [t.clone() for t in states]))
+        return out
+
+    skipped = []
+    same = TM._same_memory
+    monkeypatch.setattr(TM, "_same_memory",
+                        lambda a, b: skipped.append(same(a, b)) or same(a, b))
+    got = run()
+    n_ssm = sum(k in ("ssd", "ssd_moe") for k in cfg.pattern_for_depth())
+    # the prefill's states are new tensors; each decode step's are the
+    # cache's own
+    assert sum(skipped) == 3 * n_ssm > 0
+    monkeypatch.undo()
+    copy_as_before(monkeypatch)
+    want = run()
+    for (lg, states), (lg_w, states_w) in zip(got, want):
+        assert torch.equal(lg, lg_w)
+        assert all(torch.equal(a, b) for a, b in zip(states, states_w))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
