@@ -1190,11 +1190,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                 raise AssertionError("K5: fully masked rows are not 0")
     errs["K7"] = max(k7_agree(*case, dev, SSD_DECODE_STEPS)
                      for case in SSD_DECODE)
-    print(f"   launches so far: K1 {taskbench_compute.launches}, "
-          f"K2 {taskbench_memory.launches}, K3 {taskbench_fused.launches}, "
-          f"K4 {taskbench_onesided.launches}, K5 "
-          f"{flash_attention.launches}, K6 {ssd_chunked.launches}, K7 "
-          f"{ssd_decode.launches}")
+    print(f"   launches so far: {_build.launch_counts()}")
     done(t0)
 
     # -- 4. the structural pin -----------------------------------------
@@ -1249,7 +1245,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
               f"device {len(device_kernels(prof))} CUDA kernels, {len(k1)} "
               f"K1 {sorted({e.name for e in k1})}; launch counter "
               f"+{taskbench_compute.launches - before}")
-        if nodes != {"taskbench_compute": HEIGHT, "taskbench_memory": 0}:
+        if nodes != {"taskbench_compute": HEIGHT}:
             raise AssertionError(f"expected {HEIGHT} K1 nodes captured a "
                                  f"program, got {nodes}")
         if len(graph_launches) != PIN_RUNS or kernel_launches:
@@ -1268,9 +1264,6 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     t0 = phase(f"5. main paths: W={WIDTH}, H={HEIGHT}, torch-scan, "
                f"cuda-graph, cuda-fused, {ONESIDED}")
     scan = get_backend("torch-scan")
-    counters = {"K1": taskbench_compute, "K2": taskbench_memory,
-                "K3": taskbench_fused, "K4": taskbench_onesided,
-                "K5": flash_attention, "K6": ssd_chunked, "K7": ssd_decode}
     # the path whose launches the kernels line reports for each kernel
     launches_on = {"K1": "torch-scan", "K2": "torch-scan", "K3": "cuda-fused",
                    "K4": ONESIDED, "K5": f"{GEMMA.model} serving",
@@ -1285,8 +1278,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              (ONESIDED, onesided, ("K4",), (cases[0], cases[2])))
     outs, launches = {}, {}
     for be_name, be, path_kernels, path_cases in paths:
-        for fn in counters.values():
-            fn.launches = 0
+        _build.reset_launches()
         for label, key, graphs in path_cases:
             t1 = time.perf_counter()
             runner = be.prepare_many(graphs)
@@ -1306,7 +1298,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                       f"{program.capture_s * 1e3:.3f} ms, instantiation "
                       f"{program.instantiate_s * 1e3:.3f} ms; graph pool "
                       f"{program.pool_bytes / 2**20:.3f} MiB")
-                if program.nodes[kernel] != HEIGHT:
+                if program.nodes.get(kernel) != HEIGHT:
                     raise AssertionError(f"{label}: expected {HEIGHT} "
                                          f"{kernel} nodes, captured "
                                          f"{program.nodes}")
@@ -1317,12 +1309,12 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                 if key == "stencil":
                     stencil_graph = runner
             del runner
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = _build.launch_counts()
         print(f"   launches on the {be_name} path: {counts}"
               + (" (eager warm-up launches and captured nodes; a replay "
                  "counts none)" if be is captured else ""))
         for k in path_kernels:
-            if counts[k] == 0:
+            if k not in counts:
                 raise AssertionError(f"{k} was never launched on the "
                                      f"{be_name} path")
             if launches_on[k] == be_name:
@@ -1340,7 +1332,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                                          f"{names[0]}")
         print(f"   {label}: {', '.join(names)} pass check_outputs against "
               f"the oracle and agree bitwise")
-    host_paths(scan, oracles, counters)
+    host_paths(scan, oracles)
     done(t0)
 
     # -- kernel times at the main path's shapes -------------------------
@@ -1408,8 +1400,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
                 rows[0][3][0])
     del stencil_graph
     print(f"   ({card})")
-    for fn in counters.values():
-        fn.launches = 0  # timing launches are not main-path launches
+    _build.reset_launches()  # timing launches are not main-path launches
     done(t0)
 
     # -- 6. METG on the card --------------------------------------------
@@ -1439,24 +1430,24 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
     print(f"   ({card})")
     done(t0)
 
-    launches.update(serve_phase(MAMBA, "7", dev, card, counters))
-    launches.update(serve_phase(GEMMA, "8", dev, card, counters))
+    launches.update(serve_phase(MAMBA, "7", dev, card))
+    launches.update(serve_phase(GEMMA, "8", dev, card))
     study_phase(card)
     rank_launches = csp_phase(
         {"stencil": [stencil], "nearest": replicate(nearest, 4),
          "memory": [memory]}, oracles,
         {key: outs[label, "torch-scan"] for label, key, _ in cases},
-        results, sms, card, counters)
+        results, sms, card)
     planner_launches = planner_phase(
         (("stencil", "stencil", [stencil]),
          ("4 x nearest[radix=5]", "nearest", replicate(nearest, 4)),
          ("memory 1 MiB", "memory", [memory]),
          ("stencil 4096 B", "stencil_4096B", [full_size("stencil_4096B")])),
-        oracles, results, sms, card, counters)
+        oracles, results, sms, card)
     dense_phase(dev, card)
-    moe_launches = moe_phase(dev, card, counters, bound, peak_bf16, sms)
-    train = train_phase(dev, card, counters, bound, peak_bf16, sms)
-    dp = dp_phase(dev, card, counters)
+    moe_launches = moe_phase(dev, card, bound, peak_bf16, sms)
+    train = train_phase(dev, card, bound, peak_bf16, sms)
+    dp = dp_phase(dev, card)
     cost_phase(dev, card, sms, max_mhz, results, dp["single_step_s"])
 
     meta = {
@@ -1484,9 +1475,10 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
              "launches_on": launches_on[k],
              "rank_launches": rank_launches.get(k, {}),
              "planner_launches": planner_launches.get(k, 0),
-             "moe_launches": moe_launches[k],
-             "train_launches": train["launches"][k],
-             "dp_launches": dp["dp"][k], "pp_launches": dp["pp"][k],
+             "moe_launches": moe_launches.get(k, 0),
+             "train_launches": train["launches"].get(k, 0),
+             "dp_launches": dp["dp"].get(k, 0),
+             "pp_launches": dp["pp"].get(k, 0),
              "max_abs_err": errs[k], "ms": ms, "plain_ms": pms,
              "bound_ms": bs * 1e3, "bound_by": by,
              "library_ms": None if lib is None else lib.device,
@@ -1494,7 +1486,7 @@ def run_phases(stencil, nearest, memory, oracles: dict) -> list:
             for k, (ms, *_), (pms, *_), (bs, by), lib in rows]
 
 
-def host_paths(scan, oracles: dict, counters: dict) -> None:
+def host_paths(scan, oracles: dict) -> None:
     """``torch-host``, static and stealing, on the three cases cut to
     HOST_HEIGHT: each output against the numpy oracle of the cut graph and
     bitwise against ``torch-scan`` on it; the launch counts, zeroed just
@@ -1514,13 +1506,12 @@ def host_paths(scan, oracles: dict, counters: dict) -> None:
         runners, walls = {}, {}
         for spec in HOSTS:
             runners[spec] = get_backend(spec).prepare_many(graphs)
-            for fn in counters.values():
-                fn.launches = 0
+            _build.reset_launches()
             t1 = time.perf_counter()
             outs = runners[spec]()
             walls[spec] = [(time.perf_counter() - t1) / tasks * 1e6]
-            counts = {k: fn.launches for k, fn in counters.items()}
-            expect = {k: tasks if k == kernel else 0 for k in counts}
+            counts = _build.launch_counts()
+            expect = {kernel: tasks}
             if counts != expect:
                 raise AssertionError(f"{label} on {spec}: launches {counts}, "
                                      f"expected {expect} (one {kernel} a "
@@ -1645,7 +1636,7 @@ def split(stats: list) -> str:
 
 
 def csp_phase(cases: dict, oracles: dict, scan_outs: dict, metg: dict,
-              sms: int, card: str, counters: dict) -> dict:
+              sms: int, card: str) -> dict:
     """``torch-csp`` and ``torch-pipeline`` with RANKS rank processes
     sharing the card, rows staged through host buffers over gloo: each
     mode of ``CSP_MODES`` on the three main cases (the 4 nearest graphs as
@@ -1685,20 +1676,17 @@ def csp_phase(cases: dict, oracles: dict, scan_outs: dict, metg: dict,
           f"{apps.splitlines() if apps else 'none listed'}")
 
     def zero():
-        for fn in counters.values():
-            fn.launches = 0
+        _build.reset_launches()
         pool.call(csp.reset_launch_counts)
 
     def read():
-        return (pool.call(csp.launch_counts),
-                {k: fn.launches for k, fn in counters.items()})
+        return pool.call(csp.launch_counts), _build.launch_counts()
 
     def check(label, spec, key, graphs, got, ranks_counts, here, wall,
               prep):
         kernel = "K2" if key == "memory" else "K1"
-        want = {k: HEIGHT * len(graphs) if k == kernel else 0
-                for k in csp.COUNTERS}
-        if ranks_counts != [want] * RANKS or any(here.values()):
+        want = {kernel: HEIGHT * len(graphs)}
+        if ranks_counts != [want] * RANKS or here:
             raise AssertionError(f"{label} on {spec}: launches {ranks_counts}"
                                  f" on the ranks, {here} here; expected "
                                  f"{want} a rank")
@@ -1858,7 +1846,7 @@ def quietly(main, argv: list) -> str:
 
 
 def planner_phase(cases: tuple, oracles: dict, metg: dict, sms: int,
-                  card: str, counters: dict) -> dict:
+                  card: str) -> dict:
     """``torch-auto`` and the tuner, the runner and the suite: (a) ``--tune
     --timer synthetic`` regenerates the committed table byte for byte; (b)
     ``torch-auto`` at full size on the main cases and a stencil graph of
@@ -1894,8 +1882,7 @@ def planner_phase(cases: tuple, oracles: dict, metg: dict, sms: int,
 
     # -- (b) torch-auto at full size -------------------------------------
     auto = get_backend("torch-auto")
-    for fn in counters.values():
-        fn.launches = 0
+    _build.reset_launches()
     runs, rank_k1 = {}, 0
     for label, key, graphs in cases:
         spec = auto.resolve_spec(graphs)
@@ -1913,15 +1900,15 @@ def planner_phase(cases: tuple, oracles: dict, metg: dict, sms: int,
         t3 = time.perf_counter()
         if hasattr(be, "pool"):
             ranks = be.pool().call(csp.launch_counts)
-            rank_k1 += sum(r["K1"] for r in ranks)
+            rank_k1 += sum(r.get("K1", 0) for r in ranks)
             print(f"     {spec}: {len(ranks)} rank(s), launches {ranks}")
         runs[label] = (spec, runner, got)
         print(f"   (b) {label}: torch-auto resolves to {spec} "
               f"({resolve_us:.3f} us of host a resolve, mean of "
               f"{PLANNER_RESOLVES}); prepare {(t2 - t1) * 1e3:.3f} ms, first "
               f"run {(t3 - t2) * 1e3:.3f} ms")
-    counts = {k: fn.launches for k, fn in counters.items()}
-    counts["K1"] += rank_k1
+    counts = _build.launch_counts()
+    counts["K1"] = counts.get("K1", 0) + rank_k1
     print(f"   launches on the torch-auto path: {counts} (K1 in the ranks: "
           f"{rank_k1})")
     winners = {spec for spec, _, _ in runs.values()}
@@ -1929,7 +1916,7 @@ def planner_phase(cases: tuple, oracles: dict, metg: dict, sms: int,
                                            "K1")):
         if spec not in winners:
             raise AssertionError(f"no case resolved to {spec}: {winners}")
-        if counts[k] == 0:
+        if not counts.get(k):
             raise AssertionError(f"{k} was never launched on the torch-auto "
                                  f"path (winner {spec})")
     for label, key, graphs in cases:
@@ -2320,8 +2307,7 @@ def decode_rate(eng, cfg, rng, label: str, pin: str = "") -> float:
     return toks / wall
 
 
-def serve_phase(case: ServeCase, number: str, dev, card: str,
-                counters: dict) -> dict:
+def serve_phase(case: ServeCase, number: str, dev, card: str) -> dict:
     """Serve ``case.model`` at full width; returns its prefill kernel's
     launches on the serving path and, for a model with SSD layers, K7's
     nodes in the captured decode step."""
@@ -2349,21 +2335,20 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     engines = serve_engines(cfg, params, case.max_len)
     chunked = engines["chunked captured"]
 
-    for fn in counters.values():
-        fn.launches = 0
+    _build.reset_launches()
     tokens, done_reqs, stats, wall = served(chunked, reqs)
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = _build.launch_counts()
     print(f"   chunked captured: stats {stats}, {wall:.3f} s; launches on "
           f"the serving path: {counts}")
     longer = sum(n > 1 for n in lengths)
     want = longer * per_prefill
-    if counts[K] != want or counts[K] == 0:
-        raise AssertionError(f"{K} launched {counts[K]} times on the "
+    k_launches = counts.get(K, 0)
+    if k_launches != want or k_launches == 0:
+        raise AssertionError(f"{K} launched {k_launches} times on the "
                              f"serving path, expected {want} (one a "
                              f"{case.kind} layer for each prefill of more "
                              f"than one token)")
-    k_launches = counts[K]
-    print(f"   {K} launches {counts[K]} = {per_prefill} {case.kind} layers x "
+    print(f"   {K} launches {k_launches} = {per_prefill} {case.kind} layers x "
           f"{longer} prefills of more than one token ({stats['prefills']} "
           f"prefills; a one-token prompt is a decode step, as in the "
           f"reference)")
@@ -2418,7 +2403,7 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
     k = lengths.index(1000)
     prompt = torch.from_numpy(reqs[k][0].astype(np.int64))[None].to(dev)
     eager = engines["chunked eager"]
-    k7_nodes = chunked.program.nodes["ssd_decode"]
+    k7_nodes = chunked.program.nodes.get("ssd_decode", 0)
     chunked._dev.zero_()  # a chunk's first step (index 0), every slot dead
     for what, fn, k7_want in (
             (f"one decode step at {SERVE_SLOTS} slots, eager",
@@ -2430,15 +2415,14 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
              lambda: lm.forward(params, cfg, prompt, caches=init_caches(
                  cfg, 1, case.max_len, device=dev), last_token_only=True),
              0)):
-        for c in counters.values():
-            c.launches = 0
+        _build.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        counts = {k: c.launches for k, c in counters.items()}
+        counts = _build.launch_counts()
         kern = device_kernels(prof)
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         mine = [e for e in kern if case.name in e.name]
@@ -2450,8 +2434,8 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
               f"kernel time ({len(mine)} {K} recorded, {mine_ms:.3f} ms; "
               f"{len(k7)} K7 recorded, {k7_ms:.3f} ms) in {wall:.3f} ms of "
               f"wall (idle share {1 - busy / wall:.3f}); launches {counts}")
-        if counts["K7"] != k7_want:
-            raise AssertionError(f"{what}: K7 launched {counts['K7']} "
+        if counts.get("K7", 0) != k7_want:
+            raise AssertionError(f"{what}: K7 launched {counts.get('K7', 0)} "
                                  f"times, expected {k7_want} (once a layer "
                                  f"of the {ssd_layers} SSD layers in an "
                                  f"eager decode step, none in a replay or "
@@ -2465,8 +2449,7 @@ def serve_phase(case: ServeCase, number: str, dev, card: str,
                              f"{ssd_layers} SSD layers")
     print(f"   K7: {k7_nodes} nodes in the captured decode step and "
           f"{ssd_layers} launches in the eager one (one a SSD layer)")
-    for c in counters.values():
-        c.launches = 0
+    _build.reset_launches()
     del engines, chunked, eager
 
     # the prefill logits of the checked prompt, the kernel against its plain
@@ -2610,7 +2593,7 @@ def dense_phase(dev, card: str) -> None:
                              f"{DENSE_BUDGET_S} s budget")
 
 
-def moe_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
+def moe_phase(dev, card: str, bound, peak_bf16: float,
               sms: int) -> dict:
     """MoE serving, the a2a path and the dispatch family, in at most
     MOE_BUDGET_S: (a) ``mixtral-8x7b`` cut to MIXTRAL_LAYERS layers serving
@@ -2642,8 +2625,7 @@ def moe_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
                f"{ARCTIC_LAYERS} of its 35, the a2a layer in float32 at "
                f"capacity factor 8 on {A2A_TOKENS[0] * A2A_TOKENS[1]} "
                f"tokens)")
-    for fn in counters.values():
-        fn.launches = 0
+    _build.reset_launches()
     t1 = time.perf_counter()
     cut = dataclasses.replace(get_config("mixtral-8x7b"),
                               num_layers=MIXTRAL_LAYERS)
@@ -2659,17 +2641,15 @@ def moe_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
     want_k5 += dense_model(cut, dev, ((1000, 1 + SERVE_CHUNK),), rates=True,
                            logits_len=1000)
     print(f"     ({time.perf_counter() - t1:.3f} s)")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _build.launch_counts()
     print(f"   launches on the MoE serving path: {launches}; K5 expected "
           f"{want_k5} (a layer for each prefill into a ring cache and for "
           f"each forward without a cache)")
-    if launches["K5"] != want_k5 or any(
-            n for k, n in launches.items() if k != "K5"):
+    if launches != ({"K5": want_k5} if want_k5 else {}):
         raise AssertionError(f"MoE serving launched {launches}, K5 "
                              f"expected {want_k5} times and nothing else")
     attention_times(dev, bound, peak_bf16, sms, ATTN_MOE)
-    for fn in counters.values():
-        fn.launches = 0  # timing launches are not main-path launches
+    _build.reset_launches()  # timing launches are not main-path launches
 
     # -- (c) the a2a path against the dense path --------------------------
     t1 = time.perf_counter()
@@ -2935,8 +2915,7 @@ def grad_agree(name: str, kernel, plain, inputs: list, counter) -> float:
     return worst
 
 
-def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
-                sms: int) -> dict:
+def train_phase(dev, card: str, bound, peak_bf16: float, sms: int) -> dict:
     """Training on the card, in at most TRAIN_BUDGET_S: (1) K5 at D = 80
     (ATTN_D80, float32 and bf16) against its plain version, and timed at
     HuBERT's encoder shape beside its plain version and SDPA; (2) the
@@ -2956,12 +2935,7 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
                f"on hubert-xlarge at {TRAINER_LAYERS} of its 48 layers, "
                f"Mamba-2 at {MAMBA_TRAIN_LAYERS} of its 64)")
 
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        return {k: fn.launches for k, fn in counters.items()}
+    zero, read = _build.reset_launches, _build.launch_counts
 
     # (1) K5 at D = 80
     t1 = time.perf_counter()
@@ -3017,7 +2991,7 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
     zero()
     grads, m = TS.compute_grads(state.params, batch0, plain_cfg, tcfg)
     plain_loss, plain_gnorm = float(m["loss"]), float(global_norm(grads))
-    if read()["K5"]:
+    if read().get("K5"):
         raise AssertionError("the plain step launched K5")
     del grads, m
     step = TS.make_train_step(cfg, tcfg)
@@ -3042,7 +3016,7 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
         if i == 0:
             first = (loss, gnorm)
     # the forward and the remat recompute of every layer, nothing else
-    want = dict.fromkeys(counters, 0) | {"K5": 2 * cfg.num_layers}
+    want = {"K5": 2 * cfg.num_layers}
     if any(p != want for p in per_step):
         raise AssertionError(f"{cfg.name}: launches a step {per_step}, "
                              f"expected {want}")
@@ -3100,7 +3074,7 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
                       device=dev)
     zero()
     lg_k, _ = lm.forward(params, cfg, embeds=emb)
-    if read()["K5"] != cfg.num_layers:
+    if read().get("K5", 0) != cfg.num_layers:
         raise AssertionError(f"{cfg.name}: {read()} launches, not one K5 a "
                              f"layer")
     lg_p, _ = lm.forward(params, dataclasses.replace(
@@ -3192,8 +3166,8 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
           f"{gnorm:.6f} / {pnorm:.6f}; launches for the gradients {k6}, a "
           f"train step {mamba_launches}; |grad| summed over the SSD block's "
           f"parameters {ssd_grads}; the step's loss {float(sm['loss']):.6f}")
-    if k6["K6"] != 2 * cut.num_layers or mamba_launches != k6 or not all(
-            v > 0 for v in ssd_grads.values()) or abs(
+    if k6.get("K6", 0) != 2 * cut.num_layers or mamba_launches != k6 \
+            or not all(v > 0 for v in ssd_grads.values()) or abs(
             float(m["loss"]) - float(pm["loss"])) > TRAIN_LOSS_RTOL * abs(
             float(pm["loss"])) or abs(gnorm - pnorm) > TRAIN_GNORM_RTOL * \
             pnorm or not np.isfinite(float(sm["loss"])):
@@ -3208,15 +3182,15 @@ def train_phase(dev, card: str, counters: dict, bound, peak_bf16: float,
     if took > TRAIN_BUDGET_S:
         raise AssertionError(f"phase 14 took {took:.3f} s, over its "
                              f"{TRAIN_BUDGET_S} s budget")
-    for fn in counters.values():
-        fn.launches = 0
+    _build.reset_launches()
     shape = ATTN_D80[0]
-    return {"launches": {k: hubert_launches[k] + mamba_launches[k]
-                         for k in counters},
+    return {"launches": {k: hubert_launches.get(k, 0)
+                         + mamba_launches.get(k, 0)
+                         for k in hubert_launches.keys() | mamba_launches},
             "shapes": [{"shape": dict(zip(
                 ("B", "Sq", "Skv", "Hq", "Hkv", "D", "causal", "window",
                  "q_offset"), shape)), "model": "hubert-xlarge",
-                "launches": hubert_launches["K5"], "ms": t80.device,
+                "launches": hubert_launches.get("K5", 0), "ms": t80.device,
                 "plain_ms": p80.device, "bound_ms": b80 * 1e3,
                 "bound_by": by80, "library_ms": l80.device}]}
 
@@ -3284,7 +3258,7 @@ def update_rel_l2(got, want, start, dev) -> float:
     return (num / den) ** 0.5
 
 
-def dp_phase(dev, card: str, counters: dict) -> dict:
+def dp_phase(dev, card: str) -> dict:
     """Data-parallel training and pipelines, in at most DP_BUDGET_S: (a)
     ``qwen1.5-0.5b`` whole at DP_BATCH over DP_RANKS rank processes, its
     single-device step first (the controller keeps its losses, the
@@ -3311,12 +3285,7 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
                f"{DP_TRAINER_LAYERS} of its 24 layers, the pipelined "
                f"gradient on yi-6b at {PP_GRAD_LAYERS} of its 32)")
 
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        return {k: fn.launches for k, fn in counters.items()}
+    zero, read = _build.reset_launches, _build.launch_counts
 
     # (a) the single-device step first, then the emulations, then the ranks
     t1 = time.perf_counter()
@@ -3392,16 +3361,17 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
                       f"{st['gloo_s'] * 1e3:.3f} ms (gloo "
                       f"{st['gloo_s'] / st['wall_s']:.1%}) + the rest; "
                       f"{st['ops']} ops, {st['bytes']} bytes staged "
-                      f"(analytic {want}); K5 {st['K5']}; peak "
+                      f"(analytic {want}); K5 {st.get('K5', 0)}; peak "
                       f"{st.get('peak_bytes', 0) / 1e9:.3f} GB")
             if any(st["bytes"] != want for st in dp.stats):
                 raise AssertionError(f"{mode}: staged bytes are not the "
                                      f"analytic count")
-            launches = {k: 0 for k in counters} | {
-                "K5": dp.stats[0]["K5"], "K6": dp.stats[0]["K6"]}
-            if any(st["K5"] != 2 * cfg.num_layers for st in dp.stats):
+            launches = {k: n for k, n in dp.stats[0].items()
+                        if k in _build.KERNELS}
+            if any(st.get("K5", 0) != 2 * cfg.num_layers
+                   for st in dp.stats):
                 raise AssertionError(f"{mode}: K5 launches a rank step "
-                                     f"{[st['K5'] for st in dp.stats]}")
+                                     f"{[st.get('K5', 0) for st in dp.stats]}")
             dp_launches = launches
         master = tree.leaves(dp.params(master=True))
         other = "psum" if compress else "compressed_psum"
@@ -3524,7 +3494,7 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
           f"({fwd_wall * 1e3:.3f} ms): logits {tuple(pp.shape)}, relative L2 "
           f"{rel:.3e}, bitwise equal (required): {same}; launches "
           f"{pp_launches}")
-    want = dict.fromkeys(counters, 0) | {"K5": cfg.num_layers * PP_MICRO}
+    want = {"K5": cfg.num_layers * PP_MICRO}
     if pp_launches != want or not same or not bool(pp.isfinite().all()):
         raise AssertionError(f"{cfg.name}: the pipelined forward is not "
                              f"the forward, or K5 ran {pp_launches}")
@@ -3552,7 +3522,7 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
           f"{float(m['loss'].detach()):.6f}, launches {grad_launches}; "
           f"|grad| summed a stage, the smallest over the stacked blocks' "
           f"leaves: {smallest}")
-    if grad_launches["K5"] != PP_GRAD_LAYERS * PP_GRAD_MICRO or not all(
+    if grad_launches.get("K5", 0) != PP_GRAD_LAYERS * PP_GRAD_MICRO or not all(
             np.isfinite(x) and x > 0 for v in stage_sums.values()
             for x in v):
         raise AssertionError(f"{cut.name}: a stage got no gradient, or K5 "
@@ -3586,8 +3556,7 @@ def dp_phase(dev, card: str, counters: dict) -> dict:
     if took > DP_BUDGET_S:
         raise AssertionError(f"phase 15 took {took:.3f} s, over its "
                              f"{DP_BUDGET_S} s budget")
-    for fn in counters.values():
-        fn.launches = 0
+    _build.reset_launches()
     return {"dp": dp_launches, "pp": pp_launches,
             "single_step_s": min(single_walls[1:])}
 

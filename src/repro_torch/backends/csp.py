@@ -46,7 +46,7 @@ graphs' heights agree, else ``prepare`` (each graph its own program).
 cards (``torch.cuda.device_count()``) on CUDA, 1 on the CPU; ``ranks=N``
 puts N ranks on one device.  A runner keeps each rank's split of its last
 run in ``runner.stats`` (host seconds in the body, waiting for the device,
-staging copies and gloo; the K1/K2 launches) and ``runner.profile()``
+staging copies and gloo; the launches by kernel id) and ``runner.profile()``
 runs once more under ``torch.profiler`` in every rank.
 """
 from __future__ import annotations
@@ -64,13 +64,11 @@ from ..core.graph import TaskGraph
 from ..core.kernel_ref import mxu_weight
 from ..dist import collectives as CC
 from ..dist import ranks as R
-from ..kernels import compute, memory
+from ..kernels import _build
 from . import body
 from .base import Backend, register_backend, resolve_device
 
 AXIS = "cols"
-# the wrappers whose launches a rank counts (chip_smoke's kernel ids)
-COUNTERS = {"K1": compute.taskbench_compute, "K2": memory.taskbench_memory}
 
 
 # ------------------------------------------------------------ on a rank
@@ -172,7 +170,7 @@ def _rank_run(ctx: R.RankContext, job: int, profile: bool = False):
     comm = ctx.comm
     comm.reset_stats()
     clock = {"body_s": 0.0}
-    before = launch_counts(ctx)
+    before = _build.launch_counts()
     prof = None
 
     def timed_run():
@@ -193,9 +191,8 @@ def _rank_run(ctx: R.RankContext, job: int, profile: bool = False):
             outs, wall = timed_run()
     else:
         outs, wall = timed_run()
-    after = launch_counts(ctx)
     stats = dict(comm.stats, **clock, wall_s=wall,
-                 launches={k: after[k] - before[k] for k in after})
+                 launches=_build.launch_counts(before))
     if prof is not None:
         stats["profile"] = _device_summary(prof)
     return outs, stats
@@ -214,13 +211,12 @@ def _device_summary(prof) -> dict:
 
 
 def launch_counts(ctx: R.RankContext) -> dict:
-    """This rank's K1/K2 wrapper counts."""
-    return {k: fn.launches for k, fn in COUNTERS.items()}
+    """This rank's launches by kernel (``kernels._build.launch_counts``)."""
+    return _build.launch_counts()
 
 
 def reset_launch_counts(ctx: R.RankContext) -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    _build.reset_launches()
 
 
 def rank_memory(ctx: R.RankContext) -> dict:
@@ -269,7 +265,6 @@ class PlannedSPMDBackend(Backend):
         """The ranks, started on first use.  On a card the kernels are
         built here first, so N ranks do not run N builds."""
         if self.device.type == "cuda":
-            from ..kernels import _build
             _build.library()
         return R.get_pool(self.ndev, self.device)
 

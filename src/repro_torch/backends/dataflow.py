@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
 
 from .. import trace
-from ..kernels import taskbench_compute, taskbench_memory
+from ..kernels import _build
 from .base import register_backend
 from .scanvec import ScanBackend
 
@@ -44,10 +44,11 @@ class CapturedProgram:
     overwrites.
 
     ``capture_s`` and ``instantiate_s`` are the host seconds of the capture
-    and of the graph's instantiation; ``nodes`` counts, for each kernel
-    wrapper of ``counters`` (K1 and K2 unless given), the launches recorded
-    by the capture, each a kernel node of the graph (the wrappers' counters
-    count at capture, never at replay); ``pool_bytes`` is the device memory
+    and of the graph's instantiation; ``nodes`` counts, by wrapper name,
+    the launches of each registered kernel (``kernels._build.KERNELS``)
+    recorded by the capture, each a kernel node of the graph (the
+    wrappers' counters count at capture, never at replay), a kernel the
+    capture did not launch absent; ``pool_bytes`` is the device memory
     the graph's private pool holds; a replay is the span ``graph.replay``
     while ``trace.recording()`` is on.  The eager warm-up runs ``program``
     once for real, so a program that updates state in place leaves it
@@ -60,9 +61,7 @@ class CapturedProgram:
     capture.
     """
 
-    def __init__(self, program: Callable, device: torch.device,
-                 counters: Sequence[Callable] = (taskbench_compute,
-                                                 taskbench_memory)):
+    def __init__(self, program: Callable, device: torch.device):
         # the graph reads the staged inputs the program holds by address:
         # they must live as long as the graph
         self.program = program
@@ -75,7 +74,7 @@ class CapturedProgram:
             gc.collect()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-            before = [fn.launches for fn in counters]
+            before = _build.launch_counts()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             collecting = gc.isenabled()
             gc.disable()
@@ -91,8 +90,8 @@ class CapturedProgram:
             self.instantiate_s = time.perf_counter() - t1
             self.capture_s = t1 - t0
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.nodes = {fn.__name__: fn.launches - n
-                      for fn, n in zip(counters, before)}
+        self.nodes = {_build.KERNELS[kid].__name__: n for kid, n in
+                      _build.launch_counts(before).items()}
 
     def __call__(self):
         with trace.span("graph.replay"):

@@ -121,17 +121,22 @@ def taskbench_fused_plain(idx: torch.Tensor, mask: torch.Tensor,
     return wave.reshape(G * W, payload_elems)
 
 
-def _check_int_tables(device, tables) -> None:
-    for name, a, shape in tables:
+def _check_tables(idx, mask, iters, base, mxu_w, kernel: KernelSpec,
+                  height: int, payload_elems: int, *more) -> None:
+    """The checks K3 and K4 share: int32 tables, contiguous on ``idx``'s
+    device (``mask`` of ``idx``'s shape, ``iters`` and ``base`` of its
+    shape with one dependency, then ``more`` (name, table, shape)), the
+    compute_mxu weight and the payload and height."""
+    cols = tuple(idx.shape[:-1]) + (1,)
+    for name, a, shape in (("idx", idx, tuple(idx.shape)),
+                           ("mask", mask, tuple(idx.shape)),
+                           ("iters", iters, cols), ("base", base, cols),
+                           *more):
         if a.dtype != torch.int32 or tuple(a.shape) != shape:
             raise ValueError(f"{name} must be int32 {shape}, got "
                              f"{a.dtype} {tuple(a.shape)}")
-        if a.device != device or not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {device}")
-
-
-def _check_body(idx, mxu_w, kernel: KernelSpec, height: int,
-                payload_elems: int) -> None:
+        if a.device != idx.device or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {idx.device}")
     if kernel.kind == "compute_mxu":
         if mxu_w is None or mxu_w.dtype != torch.float32 \
                 or tuple(mxu_w.shape) != (MXU_DIM, MXU_DIM) \
@@ -149,15 +154,23 @@ def _check(idx, mask, iters, base, mxu_w, kernel: KernelSpec, ngraphs: int,
     if ngraphs < 1 or idx.ndim != 3 or idx.shape[0] != rows:
         raise ValueError(f"idx must be ({rows}, W, R) with ngraphs >= 1, "
                          f"got {tuple(idx.shape)}")
-    W, R = idx.shape[1], idx.shape[2]
-    _check_int_tables(idx.device, (("idx", idx, (rows, W, R)),
-                                   ("mask", mask, (rows, W, R)),
-                                   ("iters", iters, (rows, W, 1)),
-                                   ("base", base, (rows, W, 1))))
-    _check_body(idx, mxu_w, kernel, height, payload_elems)
+    _check_tables(idx, mask, iters, base, mxu_w, kernel, height,
+                  payload_elems)
 
 
-@costed(fused_cost)
+def _body_state(kernel: KernelSpec, tasks: int, dev: torch.device):
+    """What K3's and K4's launches share for the task body: the scratch
+    (``scratch_elems`` float32 values a task, or None), its stride, the
+    memory walk's ``(span, size)`` and whether the walk is wide
+    (``_wide``)."""
+    stride = scratch_elems(kernel)
+    scratch = (torch.empty((tasks, stride), dtype=torch.float32, device=dev)
+               if stride else None)
+    span, size, _ = bodies.memory_geometry(kernel)
+    return scratch, stride, span, size, _wide(kernel, span, scratch)
+
+
+@_build.kernel("K3", fused_cost, "fused", wide=True)
 def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
                     iters: torch.Tensor, base: torch.Tensor,
                     mxu_w: Optional[torch.Tensor], *, kernel: KernelSpec,
@@ -180,12 +193,10 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
     with trace.span("fused.check"):
         _check(idx, mask, iters, base, mxu_w, kernel, ngraphs, height,
                payload_elems)
-    if idx.device.type == "cpu":
+    if _build.runs_plain("K3", idx.device):
         return taskbench_fused_plain(
             idx, mask, iters, base, mxu_w, kernel=kernel, ngraphs=ngraphs,
             height=height, payload_elems=payload_elems)
-    if idx.device.type != "cuda":
-        raise ValueError(f"no fused kernel for device {idx.device}")
     G, W, R = ngraphs, idx.shape[1], idx.shape[2]
     dev = idx.device
     # torch.empty, never zeros: a fill would be a second kernel.  The kernel
@@ -195,32 +206,19 @@ def taskbench_fused(idx: torch.Tensor, mask: torch.Tensor,
         wave = torch.empty((G * W, payload_elems), dtype=torch.float32,
                            device=dev)
         words = torch.empty((G * height, W), dtype=torch.int64, device=dev)
-        stride = scratch_elems(kernel)
-        scratch = (torch.empty((G * W, stride), dtype=torch.float32,
-                               device=dev) if stride else None)
-        span, size, _ = bodies.memory_geometry(kernel)
-        wide = _wide(kernel, span, scratch)
+        scratch, stride, span, size, wide = _body_state(kernel, G * W, dev)
         stats = (trace.device_counters(K3_COUNTERS, fused_blocks(
             G * W, dev.index, wide), dev) if trace.active() else None)
     with trace.span("fused.launch"):
-        lib = _build.library()
-        err = lib.taskbench_fused_launch(
-            idx.data_ptr(), mask.data_ptr(), iters.data_ptr(),
-            base.data_ptr(), None if mxu_w is None else mxu_w.data_ptr(),
-            wave.data_ptr(), words.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+        _build.launch(
+            "K3", "taskbench_fused_launch", idx.data_ptr(),
+            mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
+            None if mxu_w is None else mxu_w.data_ptr(), wave.data_ptr(),
+            words.data_ptr(), None if scratch is None else scratch.data_ptr(),
             None if stats is None else stats.data_ptr(), stride,
             KIND_CODES[kernel.kind], G, height, W, R, payload_elems,
-            kernel.iterations, span, size, int(wide), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "taskbench_fused")
-    taskbench_fused.launches += 1
-    taskbench_fused.wide_launches += wide
+            kernel.iterations, span, size, int(wide), device=dev, wide=wide)
     return wave
-
-
-taskbench_fused.launches = 0
-taskbench_fused.wide_launches = 0
 
 
 def _wide(kernel: KernelSpec, span: int, scratch) -> bool:
@@ -316,20 +314,14 @@ def _check_onesided(idx, mask, iters, base, send_rows, offsets, mxu_w,
     if idx.ndim != 4 or idx.shape[1] != height:
         raise ValueError(f"idx must be (ranks, {height}, local, R), got "
                          f"{tuple(idx.shape)}")
-    ranks, _, local, R = idx.shape
     if offsets.ndim != 1 or send_rows.ndim != 3:
         raise ValueError("offsets must be (n_off,) and send_rows "
                          "(ranks, n_off, cap)")
     n_off = offsets.shape[0]
-    send_shape = (ranks, max(n_off, 1), send_rows.shape[2])
-    _check_int_tables(idx.device, (
-        ("idx", idx, (ranks, height, local, R)),
-        ("mask", mask, (ranks, height, local, R)),
-        ("iters", iters, (ranks, height, local, 1)),
-        ("base", base, (ranks, height, local, 1)),
-        ("send_rows", send_rows, send_shape),
-        ("offsets", offsets, (n_off,))))
-    _check_body(idx, mxu_w, kernel, height, payload_elems)
+    send_shape = (idx.shape[0], max(n_off, 1), send_rows.shape[2])
+    _check_tables(idx, mask, iters, base, mxu_w, kernel, height,
+                  payload_elems, ("send_rows", send_rows, send_shape),
+                  ("offsets", offsets, (n_off,)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -343,7 +335,7 @@ def onesided_blocks(device_index: int) -> int:
     return limit
 
 
-@costed(onesided_cost)
+@_build.kernel("K4", onesided_cost, "one-sided", wide=True)
 def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
                        iters: torch.Tensor, base: torch.Tensor,
                        send_rows: torch.Tensor, offsets: torch.Tensor,
@@ -361,16 +353,13 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
     """
     _check_onesided(idx, mask, iters, base, send_rows, offsets, mxu_w,
                     kernel, height, payload_elems)
-    if idx.device.type == "cpu":
+    if _build.runs_plain("K4", idx.device):
         return taskbench_onesided_plain(
             idx, mask, iters, base, send_rows, offsets, mxu_w, kernel=kernel,
             height=height, payload_elems=payload_elems)
-    if idx.device.type != "cuda":
-        raise ValueError(f"no one-sided kernel for device {idx.device}")
     ranks, _, local, R = idx.shape
     n_off, cap = offsets.shape[0], send_rows.shape[2]
     dev = idx.device
-    lib = _build.library()
     limit = onesided_blocks(dev.index)
     if ranks > limit:
         raise RuntimeError(
@@ -380,30 +369,21 @@ def taskbench_onesided(idx: torch.Tensor, mask: torch.Tensor,
     P = payload_elems
     waves = torch.empty((2, ranks * local, P), dtype=torch.float32,
                         device=dev)
-    stride = scratch_elems(kernel)
-    scratch = (torch.empty((ranks * local, stride), dtype=torch.float32,
-                           device=dev) if stride else None)
+    scratch, stride, span, size, wide = _body_state(kernel, ranks * local,
+                                                    dev)
     # one (tag, value) word an element, zeroed by the launch's memset
     inbox = torch.empty((ranks, height, max(n_off * cap, 1), P),
                         dtype=torch.int64, device=dev)
-    span, size, _ = bodies.memory_geometry(kernel)
-    wide = _wide(kernel, span, scratch)
-    err = lib.taskbench_onesided_launch(
-        idx.data_ptr(), mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
+    _build.launch(
+        "K4", "taskbench_onesided_launch", idx.data_ptr(),
+        mask.data_ptr(), iters.data_ptr(), base.data_ptr(),
         send_rows.data_ptr(), offsets.data_ptr(),
         None if mxu_w is None else mxu_w.data_ptr(), waves.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stride,
-        inbox.data_ptr(), KIND_CODES[kernel.kind], ranks,
-        height, local, R, P, n_off, cap, kernel.iterations, span, size,
-        int(wide), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "taskbench_onesided")
-    taskbench_onesided.launches += 1
-    taskbench_onesided.wide_launches += wide
+        inbox.data_ptr(), KIND_CODES[kernel.kind], ranks, height, local, R,
+        P, n_off, cap, kernel.iterations, span, size, int(wide), device=dev,
+        wide=wide)
     return waves[(height - 1) % 2]
-
-
-taskbench_onesided.launches = 0
-taskbench_onesided.wide_launches = 0
 
 
 def tables_from_numpy(tabs: Tuple[np.ndarray, ...], device) -> Tuple:

@@ -1,8 +1,10 @@
 """The port's task kernels: plain PyTorch bodies and hand-written CUDA.
 
-- bodies: plain step functions, the masked loop and ``run_kernel_columns``
-- compute: K1, the compute kernel (``csrc/compute.cu``)
-- memory: K2, the memory kernel (``csrc/memory.cu``)
+- bodies: the MXU step and ``run_kernel_columns`` (it re-exports the
+  compute and memory steps and the masked loop)
+- compute: K1, the compute kernel (``csrc/compute.cu``), with the compute
+  step and the masked loop
+- memory: K2, the memory kernel (``csrc/memory.cu``), with the memory step
 - flash_attention: K5, the FlashAttention-2 forward (bf16:
   ``csrc/flash_attention_sm90.cuh`` on wgmma and TMA; float32:
   ``csrc/flash_attention.cu``; a module, its wrapper of the same name)
@@ -11,7 +13,9 @@
   (``csrc/ssd_decode.cu``)
 - ops / ref: the LM dispatch (``attention``, ``ssd``, ``ssd_decode_step``)
   and its oracles
-- _build: the nvcc build of ``csrc/`` and the ctypes loader
+- _build: the nvcc build of ``csrc/``, the ctypes loader and the launch
+  registry every wrapper K1-K7 registers in (``kernel``, ``launch``,
+  ``launch_counts``)
 
 K3, the fused megakernel (``csrc/fused.cu``), and K4, its one-sided
 multi-rank form (``csrc/onesided.cu``), are wrapped in

@@ -10,6 +10,13 @@ nothing falls back.
 
 Nothing here runs at import time: the library is built and loaded by the
 first kernel launch (``library()``).
+
+Every wrapper of a hand-written kernel (K1-K7) registers here with
+``kernel``, under its K-id in ``KERNELS``, and launches through
+``launch``; ``runs_plain`` decides which devices run its plain version.
+What counts launches (``launch_counts``, ``reset_launches``) reads the
+registry, so a new kernel touches its own module, its ``csrc/`` source and
+``SIGNATURES``, and no reader of the counts.
 """
 from __future__ import annotations
 
@@ -21,7 +28,11 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List
+from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
+
+from ._cost import costed
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -151,3 +162,68 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+# every registered kernel wrapper by its K-id
+KERNELS: Dict[str, Callable] = {}
+
+
+def kernel(kid: str, cost: Callable, what: str,
+           plain_on: Iterable[str] = ("cpu",), wide: bool = False):
+    """Register a kernel wrapper under ``kid``: it is ``costed(cost)``,
+    counts its launches in ``.launches`` (and, where ``wide``, those on the
+    16-byte path in ``.wide_launches``), runs its plain version on the
+    devices of ``plain_on`` and raises that it has no ``what`` kernel on a
+    device that is neither those nor CUDA (``runs_plain``)."""
+    def wrap(fn):
+        call = costed(cost)(fn)
+        call.what, call.plain_on = what, frozenset(plain_on)
+        call.launches = 0
+        if wide:
+            call.wide_launches = 0
+        KERNELS[kid] = call
+        return call
+
+    return wrap
+
+
+def runs_plain(kid: str, device: torch.device) -> bool:
+    """Whether the wrapper of ``kid`` runs its plain version on ``device``
+    (False: it launches its kernel, on a CUDA device)."""
+    fn = KERNELS[kid]
+    if device.type in fn.plain_on:
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no {fn.what} kernel for device {device}")
+    return False
+
+
+def launch(kid: str, entry: str, *args, device: torch.device,
+           wide: Optional[bool] = None) -> None:
+    """Call the library's ``entry`` with ``args``, the device's index and
+    its current stream; raise on a CUDA error under the name of ``kid``'s
+    wrapper; count the launch in its ``launches`` (and ``wide`` in its
+    ``wide_launches``)."""
+    err = getattr(library(), entry)(
+        *args, device.index, torch.cuda.current_stream(device).cuda_stream)
+    fn = KERNELS[kid]
+    check(err, fn.__name__)
+    fn.launches += 1
+    if wide is not None:
+        fn.wide_launches += wide
+
+
+def launch_counts(since: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """The registered kernels' launches by K-id: since the last
+    ``reset_launches``, or since ``since`` (an earlier ``launch_counts()``).
+    A kernel whose count did not move is absent."""
+    since = since or {}
+    return {kid: fn.launches - since.get(kid, 0)
+            for kid, fn in KERNELS.items()
+            if fn.launches != since.get(kid, 0)}
+
+
+def reset_launches() -> None:
+    """Zero every registered kernel's ``launches``."""
+    for fn in KERNELS.values():
+        fn.launches = 0

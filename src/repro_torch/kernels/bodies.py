@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.bodies``: the three Task Bench inner loops
 (compute / compute_mxu / memory) as step functions, one iteration loop
 (static: keep-masked; dynamic: a trip count the host passes, for per-task
 dispatch), and ``run_kernel_columns``, the task-kernel body every backend
-runs.
+runs.  The compute step and the loop live beside K1 (``kernels.compute``),
+the memory step beside K2 (``kernels.memory``); this module re-exports
+them.
 
 On a CUDA tensor ``run_kernel_columns`` sends the compute kind to the
 hand-written kernel K1 (``kernels.compute``) and the memory kind to K2
@@ -18,12 +20,15 @@ to the numpy oracle (``core.kernel_ref``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ..core.kernel_ref import COMPUTE_C, MEM_BIAS, MEM_SCALE, mxu_weight
+from ..core.kernel_ref import mxu_weight
 from ..core.kernel_spec import COMPUTE_TILE, MXU_DIM, KernelSpec
+from . import compute, memory
+from .compute import compute_step, masked_loop  # noqa: F401 (re-exported)
+from .memory import memory_step  # noqa: F401 (re-exported)
 
 # seeds the kernel state with ``start + acc * FOLD_BLOCK``: rounds to
 # exactly ``start`` in float32 (acc < 2^20 keeps the increment below half
@@ -31,52 +36,13 @@ from ..core.kernel_spec import COMPUTE_TILE, MXU_DIM, KernelSpec
 # run-time dependency checksum, so no kernel loop can be folded away
 FOLD_BLOCK = 2.0**-46
 
-# python floats holding the exact float32 constants of the oracle
-_COMPUTE_C = float(COMPUTE_C)
-_MEM_SCALE = float(MEM_SCALE)
-_MEM_BIAS = float(MEM_BIAS)
+# 1 / MXU_DIM, exact in float32
 _MXU_INV = float(1.0 / MXU_DIM)
-
-
-def compute_step(a: torch.Tensor) -> torch.Tensor:
-    """One paper compute-kernel iteration: A = A*A - C."""
-    return a * a - _COMPUTE_C
-
-
-def memory_step(a: torch.Tensor) -> torch.Tensor:
-    """One paper memory-kernel window update: read-scale-write."""
-    return a * _MEM_SCALE + _MEM_BIAS
 
 
 def mxu_step(b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One MXU-kernel iteration: batched matmul, scaled back into orbit."""
     return torch.matmul(b, w) * _MXU_INV + b * 0.5
-
-
-def masked_loop(step_fn: Callable, state: torch.Tensor, iters: torch.Tensor,
-                max_iters: int, dynamic: bool = False) -> torch.Tensor:
-    """Run the kernel loop with per-column iteration counts.
-
-    Static mode: ``max_iters`` steps with a per-column keep-old mask, so
-    column ``w`` ends after ``min(iters[w], max_iters)`` steps — what
-    vectorized runtimes must do, and why they cannot exploit load
-    imbalance (paper §V-G).  Dynamic mode: ``max_iters`` steps with no
-    mask, where the caller passes the trip count ``max(iters)`` as a host
-    int (the reference traces ``jnp.max(iters)``; reading it from a device
-    tensor here would sync) — per-task systems genuinely run fewer
-    iterations for short tasks.  Values are bitwise identical.
-
-    ``iters`` may be ``(W,)`` or ``(W, 1)``; ``state`` has leading W.
-    """
-    if dynamic:
-        for k in range(max_iters):
-            state = step_fn(k, state)
-        return state
-    keep_shape = (state.shape[0],) + (1,) * (state.ndim - 1)
-    iters = iters.reshape(keep_shape)
-    for k in range(max_iters):
-        state = torch.where(k < iters, step_fn(k, state), state)
-    return state
 
 
 def memory_geometry(kernel: KernelSpec) -> Tuple[int, int, int]:
@@ -104,8 +70,6 @@ def run_kernel_columns(kernel: KernelSpec, iters_col: torch.Tensor,
     the (128, 128) weight on the seed's device (built from
     ``mxu_weight()`` when None).
     """
-    from . import compute, memory  # the kernel modules build on this one
-
     width = seed_col.shape[0]
 
     if kernel.kind == "empty":

@@ -1,4 +1,4 @@
-"""K5, the FlashAttention-2 forward: wrapper, plain version, launch count.
+"""K5, the FlashAttention-2 forward: wrapper and plain version.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
 Pallas TPU kernel ``_flash_kernel``).  Two CUDA kernels, chosen here by the
@@ -160,7 +160,7 @@ def _check(q, k, v, window, q_offset, block_q, block_k) -> None:
                          f"{block_k}")
 
 
-@costed(attention_cost)
+@_build.kernel("K5", attention_cost, "attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, scale: Optional[float] = None,
@@ -174,18 +174,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whose backward goes through the plain version (the module's docstring).
     """
     _check(q, k, v, window, q_offset, block_q, block_k)
-    if q.device.type == "cpu":
+    if _build.runs_plain("K5", q.device):
         return flash_attention_plain(q, k, v, causal, window, q_offset, scale,
                                      block_q, block_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
     args = (causal, window, q_offset, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, *args)
     return _launch(q, k, v, *args)
-
-
-flash_attention.launches = 0
 
 
 def _launch(q, k, v, causal, window, q_offset, scale) -> torch.Tensor:
@@ -200,27 +195,22 @@ def _launch(q, k, v, causal, window, q_offset, scale) -> torch.Tensor:
     if big >= _POS_LIMIT:
         raise ValueError(f"positions, offsets and windows must stay below "
                          f"{_POS_LIMIT}, got {big}")
-    lib = _build.library()
+    # bf16: the tensor-core kernel, whose loads are TMA's; float32: SIMT
     bf16 = q.dtype == torch.bfloat16
-    smem = (lib.flash_attention_bf16_smem_bytes(D) if bf16
-            else lib.flash_attention_f32_smem_bytes(D))
+    kind = "bf16" if bf16 else "f32"
+    smem = getattr(_build.library(), f"flash_attention_{kind}_smem_bytes")(D)
     if smem > SMEM_LIMIT:
         raise ValueError(f"D={D} needs {smem} bytes of shared memory a block,"
                          f" above {SMEM_LIMIT}")
     out = torch.empty_like(q)
-    if bf16:  # the tensor-core kernel, whose loads are TMA's
+    if bf16:
         for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
             check_tma(name, t.data_ptr(), t.stride(), t.dtype)
-        launch = lib.flash_attention_bf16_launch
-    else:  # float32: the SIMT kernel
-        launch = lib.flash_attention_f32_launch
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        Hq, Hkv, D, _scale(D, scale), int(bool(causal)),
-        int(window is not None), int(window or 0), q_offset, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.launch(
+        "K5", f"flash_attention_{kind}_launch", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+        _scale(D, scale), int(bool(causal)), int(window is not None),
+        int(window or 0), q_offset, device=q.device)
     return out
 
 

@@ -1,4 +1,4 @@
-"""K2, the Task Bench memory kernel: wrapper, plain version, launch count.
+"""K2, the Task Bench memory kernel: wrapper, plain version, its step.
 
 Counterpart of ``repro.kernels.memory.taskbench_memory`` (the Pallas TPU
 kernel ``_memory_kernel``).  The CUDA kernel is ``csrc/memory.cu``; its
@@ -8,6 +8,7 @@ Besides the reference's ``(size,)`` scratch with an int iteration count,
 the kernel takes a ``(C, size)`` scratch with a ``(C,)`` int32 count per
 row: the same function applied row by row, the form a timestep's
 per-column scratch needs (``kernels.bodies.run_kernel_columns``).
+The memory step lives here, and ``kernels.bodies`` re-exports it.
 """
 from __future__ import annotations
 
@@ -15,9 +16,18 @@ from typing import Union
 
 import torch
 
+from ..core.kernel_ref import MEM_BIAS, MEM_SCALE
 from . import _build
 from ._cost import Cost, costed, data_sum, nbytes
-from .bodies import memory_step
+
+# python floats holding the exact float32 constants of the oracle
+_MEM_SCALE = float(MEM_SCALE)
+_MEM_BIAS = float(MEM_BIAS)
+
+
+def memory_step(a: torch.Tensor) -> torch.Tensor:
+    """One paper memory-kernel window update: read-scale-write."""
+    return a * _MEM_SCALE + _MEM_BIAS
 
 
 def _window_reps(iterations: torch.Tensor, nwin: int) -> torch.Tensor:
@@ -91,7 +101,7 @@ def _check(x: torch.Tensor, iterations, span: int) -> None:
         raise ValueError(f"iterations on {iterations.device}, x on {x.device}")
 
 
-@costed(memory_cost)
+@_build.kernel("K2", memory_cost, "memory", wide=True)
 def taskbench_memory(x: torch.Tensor, iterations: Union[int, torch.Tensor],
                      span: int) -> torch.Tensor:
     """The scratch after the window walk (out of place).
@@ -102,25 +112,15 @@ def taskbench_memory(x: torch.Tensor, iterations: Union[int, torch.Tensor],
     words, ``wide_path``).
     """
     _check(x, iterations, span)
-    if x.device.type == "cpu":
+    if _build.runs_plain("K2", x.device):
         return taskbench_memory_plain(x, iterations, span)
-    if x.device.type != "cuda":
-        raise ValueError(f"no memory kernel for device {x.device}")
     out = torch.empty_like(x)
     rows = 1 if x.ndim == 1 else x.shape[0]
     per_row = isinstance(iterations, torch.Tensor)
     wide = wide_path(int(span), x.data_ptr(), out.data_ptr())
-    lib = _build.library()
-    err = lib.taskbench_memory_launch(
-        x.data_ptr(), iterations.data_ptr() if per_row else None,
-        0 if per_row else int(iterations), out.data_ptr(), rows,
-        x.shape[-1], int(span), int(wide), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "taskbench_memory")
-    taskbench_memory.launches += 1
-    taskbench_memory.wide_launches += wide
+    _build.launch("K2", "taskbench_memory_launch",
+                  x.data_ptr(), iterations.data_ptr() if per_row else None,
+                  0 if per_row else int(iterations), out.data_ptr(), rows,
+                  x.shape[-1], int(span), int(wide), device=x.device,
+                  wide=wide)
     return out
-
-
-taskbench_memory.launches = 0
-taskbench_memory.wide_launches = 0

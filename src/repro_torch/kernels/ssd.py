@@ -1,4 +1,4 @@
-"""K6, the Mamba-2 SSD chunked forward: wrapper, plain version, launch count.
+"""K6, the Mamba-2 SSD chunked forward: wrapper and plain version.
 
 Counterpart of ``repro.kernels.ssd.ssd_chunked`` (the Pallas TPU kernel
 ``_ssd_kernel``).  Two CUDA kernels, picked by type and size in
@@ -148,7 +148,7 @@ def uses_tensor_cores(x: torch.Tensor, Bm: torch.Tensor) -> bool:
             and x.shape[3] <= TC_MAX_P and Bm.shape[3] <= TC_MAX_N)
 
 
-@costed(ssd_cost)
+@_build.kernel("K6", ssd_cost, "SSD")
 def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
                 chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the SSD chunked forward from a zero state.
@@ -160,19 +160,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, D: Optional[torch.Tensor] = None,
     backward goes through the plain version (the module's docstring).
     """
     chunk = _check(x, dt, A, Bm, Cm, D, chunk)
-    if x.device.type == "cpu":
+    if _build.runs_plain("K6", x.device):
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD kernel for device {x.device}")
     ins = (x, dt, A, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         y, state = _SSDChunked.apply(*ins, chunk)
     else:
         y, state = _launch(*ins, chunk)
     return _with_skip(y, x, D), state
-
-
-ssd_chunked.launches = 0
 
 
 def _launch(x, dt, A, Bm, Cm, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,10 +179,8 @@ def _launch(x, dt, A, Bm, Cm, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if P % 4 or N % 4:
         raise ValueError(f"K6 takes P and N in multiples of 4, got P={P}, "
                          f"N={N}")
-    lib = _build.library()
     y = torch.empty_like(x)
     state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     if uses_tensor_cores(x, Bm):
         for name, t in (("x", x), ("B", Bm), ("C", Cm)):
             if t.data_ptr() % 8:
@@ -200,24 +193,23 @@ def _launch(x, dt, A, Bm, Cm, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
         decay = torch.empty(Bsz, H, nc, dtype=torch.float32, device=x.device)
         hin = torch.empty(Bsz, H, nc, 2, P, N, dtype=torch.bfloat16,
                           device=x.device)
-        err = lib.ssd_chunked_bf16_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), hs.data_ptr(),
-            decay.data_ptr(), hin.data_ptr(), Bsz, S, H, P, G, N, chunk,
-            x.device.index, stream)
+        _build.launch(
+            "K6", "ssd_chunked_bf16_launch", x.data_ptr(),
+            dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), state.data_ptr(), hs.data_ptr(), decay.data_ptr(),
+            hin.data_ptr(), Bsz, S, H, P, G, N, chunk, device=x.device)
     else:
-        smem = lib.ssd_chunked_smem_bytes(P, N, chunk)
+        smem = _build.library().ssd_chunked_smem_bytes(P, N, chunk)
         if smem > SMEM_LIMIT:
             raise ValueError(f"P={P}, N={N}, chunk={chunk} needs {smem} "
                              f"bytes of shared memory a block, above "
                              f"{SMEM_LIMIT}")
-        err = lib.ssd_chunked_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G,
-            N, chunk, int(x.dtype == torch.bfloat16),
-            int(Bm.dtype == torch.bfloat16), x.device.index, stream)
-    _build.check(err, "ssd_chunked")
-    ssd_chunked.launches += 1
+        _build.launch(
+            "K6", "ssd_chunked_launch", x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+            state.data_ptr(), Bsz, S, H, P, G, N, chunk,
+            int(x.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
+            device=x.device)
     return y, state
 
 

@@ -1,4 +1,4 @@
-"""K7, one Mamba-2 SSD decode step: wrapper, plain version, launch count.
+"""K7, one Mamba-2 SSD decode step: wrapper and plain version.
 
 The serving path's single-token update (``ops.ssd_decode_step``) from the
 carried float32 state h (B, H, P, N): da = exp(dt A), h' = da h + (x dt)
@@ -85,7 +85,7 @@ def ssd_decode_plain(x, dt, A, Bm, Cm, h, D: Optional[torch.Tensor] = None
     return y, h
 
 
-@costed(ssd_decode_cost)
+@_build.kernel("K7", ssd_decode_cost, "SSD decode", plain_on=("cpu", "meta"))
 def ssd_decode(x, dt, A, Bm, Cm, h, D: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, h) of one decode step, ``h`` updated in place.
@@ -96,10 +96,8 @@ def ssd_decode(x, dt, A, Bm, Cm, h, D: Optional[torch.Tensor] = None
     have any slot stride, each dense within a slot.
     """
     _check(x, dt, A, Bm, Cm, h, D)
-    if h.device.type in ("cpu", "meta"):
+    if _build.runs_plain("K7", h.device):
         return ssd_decode_plain(x, dt, A, Bm, Cm, h, D)
-    if h.device.type != "cuda":
-        raise ValueError(f"no SSD decode kernel for device {h.device}")
     ins = (x, dt, A, Bm, Cm, h) + (() if D is None else (D,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise ValueError("K7 has no backward: no input of the decode step "
@@ -117,20 +115,13 @@ def ssd_decode(x, dt, A, Bm, Cm, h, D: Optional[torch.Tensor] = None
         if not t[0].is_contiguous():
             raise ValueError(f"{name} must be dense within a slot")
         slots.append(t.stride(0))
-    lib = _build.library()
-    err = lib.ssd_decode_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), None if D is None else D.data_ptr(), h.data_ptr(),
-        y.data_ptr(), Bsz, H, P, N, G, *slots,
-        int(x.dtype == torch.bfloat16), int(uses_wide_path(h)),
-        h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(err, "ssd_decode")
-    ssd_decode.launches += 1
+    _build.launch(
+        "K7", "ssd_decode_launch", x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if D is None else D.data_ptr(), h.data_ptr(), y.data_ptr(), Bsz,
+        H, P, N, G, *slots, int(x.dtype == torch.bfloat16),
+        int(uses_wide_path(h)), device=h.device)
     return y, h
-
-
-ssd_decode.launches = 0
 
 
 def uses_wide_path(h: torch.Tensor) -> bool:

@@ -76,9 +76,6 @@ import torch
 from .. import trace
 from ..backends.dataflow import CapturedProgram
 from ..dist.sharding import constrain
-from ..kernels.flash_attention import flash_attention
-from ..kernels.ssd import ssd_chunked
-from ..kernels.ssd_decode import ssd_decode
 from ..models import model as M
 from ..models.cache import (LayerCache, init_caches, reset_slot,
                             stack_caches, write_prompt)
@@ -240,9 +237,7 @@ class ServeEngine:
             self._host_step
         self.program = None
         if graphs:
-            self.program = CapturedProgram(step, self.device,
-                                           counters=(flash_attention,
-                                                     ssd_chunked, ssd_decode))
+            self.program = CapturedProgram(step, self.device)
             for slot in range(B):  # undo the warm-up's writes
                 reset_slot(self.caches, slot)
             self.cur.zero_()

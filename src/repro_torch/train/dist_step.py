@@ -43,8 +43,7 @@ import torch
 from .. import tree as T
 from ..checkpoint import checkpoint as ckpt
 from ..dist.compression import compressed_psum
-from ..kernels.flash_attention import flash_attention
-from ..kernels.ssd import ssd_chunked
+from ..kernels import _build
 from ..optim import adamw
 from ..optim.schedule import warmup_cosine
 from . import train_step as TS
@@ -122,14 +121,13 @@ def _rank_load(ctx, job: int, src, step: Optional[int]) -> int:
 def _rank_step(ctx, job: int, rows: Dict) -> Tuple[Dict, Dict]:
     rep = ctx.jobs[job]
     ctx.comm.reset_stats()
-    n5, n6 = flash_attention.launches, ssd_chunked.launches
+    before = _build.launch_counts()
     t0 = time.perf_counter()
     _, metrics = dp_train_step(rep.state, rows, rep.cfg, rep.tcfg, ctx.comm,
                                rep.compress)
     metrics = {k: float(v) for k, v in metrics.items()}  # the step's sync
     stats = dict(ctx.comm.stats, wall_s=time.perf_counter() - t0,
-                 K5=flash_attention.launches - n5,
-                 K6=ssd_chunked.launches - n6)
+                 **_build.launch_counts(before))
     if ctx.device.type == "cuda":
         stats["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
     return metrics, stats
@@ -186,10 +184,11 @@ class DataParallel:
     ``run_step(batch)`` runs one step and returns rank 0's metrics as
     floats.  ``step`` is the replicas' step count.
     After a step, ``stats`` holds each rank's ``RankComm.stats`` of that
-    step, its wall (``wall_s``), its K5 and K6 launches and (on a card)
-    its peak device memory.  The reference's ``ep_mode`` override is left
-    out: the port's forward runs the MoE dense path, which no ``ep_mode``
-    changes.
+    step, its wall (``wall_s``), its launches by kernel id (K5 and K6 on
+    a card; ``kernels._build.launch_counts``, a kernel that did not launch
+    absent) and (on a card) its peak device memory.  The reference's
+    ``ep_mode`` override is left out: the port's forward runs the MoE dense
+    path, which no ``ep_mode`` changes.
     """
 
     def __init__(self, pool, cfg, tcfg: TS.TrainConfig, compress: bool = True,

@@ -224,7 +224,8 @@ def test_overlap_exchanges_as_often_as_blocking():
         runner = backend(4, f"comm_overlap={overlap}").prepare([g])
         runner()
         stats = runner.stats[0]
-        assert [s["launches"] for s in stats] == [{"K1": 0, "K2": 0}] * 4
+        # on the CPU K1 runs its plain version: no kernel launched
+        assert [s["launches"] for s in stats] == [{}] * 4
         ops[overlap] = [s["ops"] for s in stats]
         # a halo step: a send and a receive to each neighbour there is
         assert ops[overlap] == [2 * 7, 4 * 7, 4 * 7, 2 * 7]

@@ -327,8 +327,7 @@ def test_cuda_graph_run_is_one_graph_launch(cuda, kind, ngraphs):
                    span_bytes=512, scratch_bytes=2048)
     runner = get_backend("cuda-graph").prepare_many(replicate(g, ngraphs))
     name = {"compute": "taskbench_compute", "memory": "taskbench_memory"}
-    assert runner.program.nodes == {
-        n: g.height if k == kind else 0 for k, n in name.items()}
+    assert runner.program.nodes == {name[kind]: g.height}
     runner()
     counted = taskbench_compute.launches + taskbench_memory.launches
     outs = runner.program.outputs
@@ -466,7 +465,7 @@ def test_torch_csp_launches_k1_or_k2_each_step_on_every_rank(cuda, kind,
         pool.call(csp.reset_launch_counts)
         runner()
         h = graphs[0].height * len(graphs)
-        want = {k: h if k == key else 0 for k in ("K1", "K2")}
+        want = {key: h}
         assert pool.call(csp.launch_counts) == [want] * ranks
         assert [s["launches"] for s in runner.stats[0]] == [want] * ranks
 
@@ -1090,8 +1089,7 @@ def test_captured_engine_gives_the_eager_engines_tokens_and_stats(
     got, stats, eng = drain(cfg, params, mode, True, max_len)
     assert eng.program is not None
     ssm = sum(k in ("ssd", "ssd_moe") for k in cfg.pattern_for_depth())
-    assert eng.program.nodes == {"flash_attention": 0, "ssd_chunked": 0,
-                                 "ssd_decode": ssm}
+    assert eng.program.nodes == ({"ssd_decode": ssm} if ssm else {})
     assert got == eager and stats == eager_stats
     assert [len(t) for t in got] == [m for _, m in SERVE_REQS]
     seq = eager[0]
@@ -1553,7 +1551,8 @@ def test_reduced_dp_step_on_card_matches_the_single_device_step(cuda,
         got = dp.run_step(batch)
         assert abs(got["loss"] - float(m["loss"])) <= (
             2e-2 if compress else 1e-4)
-        assert [st["K5"] for st in dp.stats] == [2 * cfg.num_layers] * 2
+        assert [st.get("K5", 0) for st in dp.stats] == \
+            [2 * cfg.num_layers] * 2
         dp.fingerprint()
         if compress:
             gnorms["card"].append(got["grad_norm"])

@@ -433,3 +433,123 @@ def test_digest_follows_sources_and_flags(monkeypatch):
     assert d0 == _build.source_digest()
     monkeypatch.setattr(_build, "COMPILE_FLAGS", _build.COMPILE_FLAGS + ["-G"])
     assert _build.source_digest() != d0
+
+
+# ------------------------------------------------------ the launch registry
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+# each kernel: (its module, its wrapper, whether it counts wide launches,
+# the devices it runs its plain version on)
+KERNELS = {
+    "K1": ("repro_torch.kernels.compute", "taskbench_compute", False,
+           ("cpu",)),
+    "K2": ("repro_torch.kernels.memory", "taskbench_memory", True, ("cpu",)),
+    "K3": ("repro_torch.backends.megakernel", "taskbench_fused", True,
+           ("cpu",)),
+    "K4": ("repro_torch.backends.megakernel", "taskbench_onesided", True,
+           ("cpu",)),
+    "K5": ("repro_torch.kernels.flash_attention", "flash_attention", False,
+           ("cpu",)),
+    "K6": ("repro_torch.kernels.ssd", "ssd_chunked", False, ("cpu",)),
+    "K7": ("repro_torch.kernels.ssd_decode", "ssd_decode", False,
+           ("cpu", "meta")),
+}
+
+
+@pytest.mark.parametrize("kid", sorted(KERNELS))
+def test_registry_holds_each_kernel_once(kid):
+    """The registry holds the wrapper once, under its K-id; the wrapper
+    carries its declared cost and integer counters; its plain version is
+    where it was, with the same cost, and is not registered."""
+    import importlib
+
+    module, name, wide, _ = KERNELS[kid]
+    mod = importlib.import_module(module)
+    fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    assert [k for k, f in _build.KERNELS.items() if f is fn] == [kid]
+    assert fn.__name__ == name
+    assert callable(fn.cost) and fn.cost is plain.cost
+    assert type(fn.launches) is int
+    assert hasattr(fn, "wide_launches") == wide
+    if wide:
+        assert type(fn.wide_launches) is int
+    assert plain not in _build.KERNELS.values()
+
+
+@pytest.mark.parametrize("kid", sorted(KERNELS))
+def test_each_kernel_picks_its_path_by_device(kid):
+    """Its plain devices run the plain version, CUDA the kernel, and any
+    other device raises with the wrapper's own message."""
+    import importlib
+
+    module, _, _, plain_on = KERNELS[kid]
+    importlib.import_module(module)
+    assert _build.runs_plain(kid, torch.device("cpu"))
+    assert not _build.runs_plain(kid, torch.device("cuda"))
+    if "meta" in plain_on:
+        assert _build.runs_plain(kid, torch.device("meta"))
+    else:
+        what = _build.KERNELS[kid].what
+        with pytest.raises(ValueError,
+                           match=f"no {what} kernel for device meta"):
+            _build.runs_plain(kid, torch.device("meta"))
+
+
+def test_launch_counts_list_the_kernels_whose_count_moved(monkeypatch):
+    for fn in _build.KERNELS.values():
+        monkeypatch.setattr(fn, "launches", 0)
+    assert _build.launch_counts() == {}
+    monkeypatch.setattr(taskbench_memory, "launches", 3)
+    before = _build.launch_counts()
+    assert before == {"K2": 3}
+    monkeypatch.setattr(taskbench_compute, "launches", 2)
+    assert _build.launch_counts(before) == {"K1": 2}
+    _build.reset_launches()
+    assert _build.launch_counts() == {}
+    assert (taskbench_compute.launches, taskbench_memory.launches) == (0, 0)
+
+
+def _names(path: Path):
+    """Every name, attribute and imported name a module's source uses."""
+    import ast
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Name):
+            yield node.id
+        elif isinstance(node, ast.Attribute):
+            yield node.attr
+        elif isinstance(node, ast.alias):
+            yield node.asname or node.name.split(".")[-1]
+
+
+@pytest.mark.parametrize("rel", ["backends/dataflow.py", "backends/csp.py",
+                                 "serve/engine.py", "train/dist_step.py"])
+def test_consumers_name_no_kernel_of_their_own(rel):
+    """What counts launches reads the registry: the capture, the rank
+    backends, the engine and the training ranks name no kernel wrapper and
+    no wrapper's counter."""
+    wrappers = {name for _, name, _, _ in KERNELS.values()}
+    hits = set(_names(SRC / rel)) & (wrappers | {"launches",
+                                                 "wide_launches"})
+    assert not hits, (rel, hits)
+
+
+def test_only_the_registry_writes_launch_counters():
+    """Outside ``kernels/_build.py`` no module of the port assigns or
+    increments a ``launches`` or ``wide_launches`` attribute, and
+    ``kernels/bodies.py`` imports nothing inside a function."""
+    import ast
+
+    for path in sorted(SRC.rglob("*.py")):
+        if path == SRC / "kernels" / "_build.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            targets = (node.targets if isinstance(node, ast.Assign) else
+                       [node.target] if isinstance(node, ast.AugAssign)
+                       else [])
+            assert not any(isinstance(t, ast.Attribute) and t.attr in (
+                "launches", "wide_launches") for t in targets), path
+    bodies_src = ast.parse((SRC / "kernels" / "bodies.py").read_text())
+    for fn in ast.walk(bodies_src):
+        if isinstance(fn, ast.FunctionDef):
+            assert not any(isinstance(n, (ast.Import, ast.ImportFrom))
+                           for n in ast.walk(fn)), fn.name

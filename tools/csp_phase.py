@@ -45,10 +45,8 @@ def main() -> int:
         oracles = {k: pool.submit(cs.oracle, k)
                    for k in ("stencil", "nearest", "memory", "sweep")}
         scan_outs = {k: scan.run_many(g) for k, g in cases.items()}
-        counters = {"K1": cs.taskbench_compute, "K2": cs.taskbench_memory}
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        print(cs.csp_phase(cases, oracles, scan_outs, {}, sms, card,
-                           counters))
+        print(cs.csp_phase(cases, oracles, scan_outs, {}, sms, card))
     print(f"total {time.perf_counter() - t0:.3f} s")
     return 0
 

@@ -32,10 +32,7 @@ def main() -> int:
     card = cs.smi("name,power.limit")
     print(card, torch.__version__, torch.version.cuda, sys.version.split()[0])
     cs._build.library()
-    counters = {"K1": cs.taskbench_compute, "K2": cs.taskbench_memory,
-                "K3": cs.taskbench_fused, "K4": cs.taskbench_onesided,
-                "K5": cs.flash_attention, "K6": cs.ssd_chunked}
-    got = cs.dp_phase(torch.device("cuda"), card, counters)
+    got = cs.dp_phase(torch.device("cuda"), card)
     print(f"launches: {got}")
     print(f"total {time.perf_counter() - t0:.3f} s")
     return 0

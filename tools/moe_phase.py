@@ -50,10 +50,7 @@ def main() -> int:
             cs.attn_agree(f"{tuple(shape)} window={window} "
                           f"{str(dtype)[6:]}", cs.flash_attention(q, k, v, **kw),
                           cs.flash_attention_plain(q, k, v, **kw))
-    counters = {"K1": cs.taskbench_compute, "K2": cs.taskbench_memory,
-                "K3": cs.taskbench_fused, "K4": cs.taskbench_onesided,
-                "K5": cs.flash_attention, "K6": cs.ssd_chunked}
-    launches = cs.moe_phase(dev, card, counters, bound, peak_bf16, sms)
+    launches = cs.moe_phase(dev, card, bound, peak_bf16, sms)
     print(f"launches on the MoE serving path: {launches}")
     print(f"total {time.perf_counter() - t0:.3f} s")
     return 0

@@ -42,9 +42,6 @@ def main() -> int:
              ("memory 1 MiB", "memory", [cs.full_size("memory")]),
              ("stencil 4096 B", "stencil_4096B",
               [cs.full_size("stencil_4096B")]))
-    counters = {"K1": cs.taskbench_compute, "K2": cs.taskbench_memory,
-                "K3": cs.taskbench_fused, "K4": cs.taskbench_onesided,
-                "K5": cs.flash_attention, "K6": cs.ssd_chunked}
     with ProcessPoolExecutor(4, mp_context=get_context("spawn")) as pool:
         oracles = {key: pool.submit(cs.oracle, key) for _, key, _ in cases}
         fused = cs.run_scenario(cs.ScenarioSpec(
@@ -55,7 +52,7 @@ def main() -> int:
                                    repeats=3, warmup=1)))
         print(f"cuda-fused METG {fused.metg_s * 1e6} us")
         print(cs.planner_phase(cases, oracles, {"cuda-fused": fused}, sms,
-                               card, counters))
+                               card))
     print(f"total {time.perf_counter() - t0:.3f} s")
     return 0
 

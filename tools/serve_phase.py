@@ -35,9 +35,8 @@ def main() -> int:
     print(card, torch.__version__, torch.version.cuda, sys.version.split()[0])
     cs._build.library()
     dev = torch.device("cuda")
-    counters = {"K5": cs.flash_attention, "K6": cs.ssd_chunked}
-    launches = {"K6": cs.serve_phase(cs.MAMBA, "7", dev, card, counters),
-                "K5": cs.serve_phase(cs.GEMMA, "8", dev, card, counters)}
+    launches = {"K6": cs.serve_phase(cs.MAMBA, "7", dev, card),
+                "K5": cs.serve_phase(cs.GEMMA, "8", dev, card)}
     cs.dense_phase(dev, card)
     print(f"launches on the serving paths: {launches}")
     print(f"total {time.perf_counter() - t0:.3f} s")

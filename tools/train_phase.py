@@ -47,10 +47,7 @@ def main() -> int:
         return ((t_ops, "operations") if t_ops >= t_bytes
                 else (t_bytes, "bytes"))
 
-    counters = {"K1": cs.taskbench_compute, "K2": cs.taskbench_memory,
-                "K3": cs.taskbench_fused, "K4": cs.taskbench_onesided,
-                "K5": cs.flash_attention, "K6": cs.ssd_chunked}
-    got = cs.train_phase(dev, card, counters, bound, peak_bf16, sms)
+    got = cs.train_phase(dev, card, bound, peak_bf16, sms)
     print(f"training: {got}")
     print(f"total {time.perf_counter() - t0:.3f} s")
     return 0
